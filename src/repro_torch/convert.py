@@ -1,0 +1,78 @@
+"""Carry state written by the JAX reference over to the port.
+
+The reference's banks and entries are handed over as numpy arrays (or
+any object whose fields are array-likes of the same names — the
+reference's ``NamedTuple`` banks qualify once read with ``np.asarray``),
+so this module needs neither JAX nor the ``repro`` package. uint32
+words become int32 tensors with the same bit patterns; every other lane
+keeps its type.
+
+    from repro_torch import convert
+    tb = convert.store_bank(jax_tb, device="cuda")
+    entries = convert.entries(jax_entries)       # -> seed_patterns
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from .core.engine_step import GraphArrays, QueryBank, StackBank
+from .patterns.store import ENTRY_KEYS, PatternStoreBank
+
+__all__ = ["as_int32", "to_tensor", "graph_arrays", "query_bank",
+           "store_bank", "stack_bank", "entries", "to_numpy"]
+
+
+def as_int32(a) -> np.ndarray:
+    """numpy view of an array with uint32 words reinterpreted as int32
+    (other dtypes unchanged)."""
+    a = np.ascontiguousarray(np.asarray(a))
+    return a.view(np.int32) if a.dtype == np.uint32 else a
+
+
+def to_tensor(a, device="cpu") -> torch.Tensor:
+    return torch.from_numpy(as_int32(a).copy()).to(device)
+
+
+def _field(src: Any, name: str):
+    return src[name] if isinstance(src, dict) else getattr(src, name)
+
+
+def _build(cls, src: Any, device) -> Any:
+    return cls(**{k: to_tensor(_field(src, k), device)
+                  for k in cls._fields})
+
+
+def graph_arrays(adj_bitmap, device="cpu") -> GraphArrays:
+    """Dense-layout graph view from a packed [V, W] adjacency."""
+    adj = to_tensor(adj_bitmap, device)
+    return GraphArrays(adj_bitmap=adj, n_vertices=int(adj.shape[0]))
+
+
+def query_bank(src: Any, device="cpu") -> QueryBank:
+    return _build(QueryBank, src, device)
+
+
+def store_bank(src: Any, device="cpu") -> PatternStoreBank:
+    return _build(PatternStoreBank, src, device)
+
+
+def stack_bank(src: Any, device="cpu") -> StackBank:
+    return _build(StackBank, src, device)
+
+
+def entries(src: dict) -> dict:
+    """An entries dict (the reference's ``store_to_entries`` output or a
+    ``PatternCache`` line) as the port's ``seed_patterns``: the same
+    keys, copied with the port's dtypes."""
+    dtypes = {"pos": np.int32, "v": np.int32, "phi": np.int32,
+              "mu": np.int32, "mask": np.uint64, "hits": np.int64}
+    return {k: np.array(src[k], dtype=dtypes[k]) for k in ENTRY_KEYS}
+
+
+def to_numpy(nt: Any) -> dict:
+    """Every tensor field of a port ``NamedTuple`` as a numpy array."""
+    return {k: v.detach().cpu().numpy() for k, v in nt._asdict().items()
+            if torch.is_tensor(v)}
