@@ -8,8 +8,12 @@ words become int32 tensors with the same bit patterns; every other lane
 keeps its type.
 
     from repro_torch import convert
-    tb = convert.store_bank(jax_tb, device="cuda")
+    tb = convert.store_bank(jax_tb)              # on the card
+    g = convert.graph_arrays(jax_sched.g, device="cpu")
     entries = convert.entries(jax_entries)       # -> seed_patterns
+
+Like every entry point of the port, these place tensors on ``"cuda"``
+unless the caller asks for another device, and raise without a card.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from .core.engine_step import GraphArrays, QueryBank, StackBank
+from .kernels.config import resolve_device
 from .patterns.store import ENTRY_KEYS, PatternStoreBank
 
 __all__ = ["as_int32", "to_tensor", "graph_arrays", "query_bank",
@@ -32,12 +37,15 @@ def as_int32(a) -> np.ndarray:
     return a.view(np.int32) if a.dtype == np.uint32 else a
 
 
-def to_tensor(a, device="cpu") -> torch.Tensor:
-    return torch.from_numpy(as_int32(a).copy()).to(device)
+def to_tensor(a, device="cuda") -> torch.Tensor:
+    return torch.from_numpy(as_int32(a).copy()).to(resolve_device(device))
 
 
 def _field(src: Any, name: str):
-    return src[name] if isinstance(src, dict) else getattr(src, name)
+    """Field ``name`` of a NamedTuple-like or dict ``src`` (None if it
+    has none)."""
+    return src.get(name) if isinstance(src, dict) else getattr(src, name,
+                                                               None)
 
 
 def _build(cls, src: Any, device) -> Any:
@@ -45,21 +53,34 @@ def _build(cls, src: Any, device) -> Any:
                   for k in cls._fields})
 
 
-def graph_arrays(adj_bitmap, device="cpu") -> GraphArrays:
-    """Dense-layout graph view from a packed [V, W] adjacency."""
-    adj = to_tensor(adj_bitmap, device)
-    return GraphArrays(adj_bitmap=adj, n_vertices=int(adj.shape[0]))
+def graph_arrays(src: Any, device="cuda") -> GraphArrays:
+    """The port's graph view from a packed [V, W] adjacency array, or
+    from the reference's ``GraphArrays`` lanes (a ``NamedTuple`` or a
+    dict, dense or hierarchical). A hierarchical source carries its
+    ``kmax`` as the length of its ``chunk_pad`` lane."""
+    if _field(src, "chunk_data") is None:
+        adj = _field(src, "adj_bitmap")
+        adj = to_tensor(src if adj is None else adj, device)
+        return GraphArrays(adj_bitmap=adj, n_vertices=int(adj.shape[0]))
+    summary = to_tensor(_field(src, "adj_summary"), device)
+    return GraphArrays(
+        adj_bitmap=None, n_vertices=int(summary.shape[0]),
+        adj_summary=summary,
+        chunk_ptr=to_tensor(_field(src, "chunk_ptr"), device),
+        chunk_id=to_tensor(_field(src, "chunk_id"), device),
+        chunk_data=to_tensor(_field(src, "chunk_data"), device),
+        kmax=int(np.asarray(_field(src, "chunk_pad")).shape[0]))
 
 
-def query_bank(src: Any, device="cpu") -> QueryBank:
+def query_bank(src: Any, device="cuda") -> QueryBank:
     return _build(QueryBank, src, device)
 
 
-def store_bank(src: Any, device="cpu") -> PatternStoreBank:
+def store_bank(src: Any, device="cuda") -> PatternStoreBank:
     return _build(PatternStoreBank, src, device)
 
 
-def stack_bank(src: Any, device="cpu") -> StackBank:
+def stack_bank(src: Any, device="cuda") -> StackBank:
     return _build(StackBank, src, device)
 
 

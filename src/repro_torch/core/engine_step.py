@@ -40,7 +40,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..kernels.bitmap_refine import refine_bitmap_rows
+from ..kernels.bitmap_refine import (refine_bitmap_rows,
+                                     refine_bitmap_rows_hier)
 from ..kernels.bitops import (bit_table, bitlen32, popcount,
                               popcount_rows, to_i32, u32)
 from ..patterns.store import (MASK_WORDS, PatternStore, PatternStoreBank,
@@ -62,9 +63,29 @@ STK_RES = 4
 
 
 class GraphArrays(NamedTuple):
-    """Device view of the data graph (dense layout only in this port)."""
-    adj_bitmap: torch.Tensor     # int32 [V, W] packed adjacency
+    """Device view of the data graph.
+
+    Two mutually exclusive adjacency layouts:
+
+      * dense — ``adj_bitmap`` holds the whole packed [V, W] block and
+        the hierarchical fields are None; refinement gathers rows.
+      * hier  — ``adj_bitmap`` is None and the two-level layout
+        (core.graph.HierBitmap) rides in ``adj_summary`` /
+        ``chunk_ptr`` / ``chunk_id`` / ``chunk_data``, with ``kmax``
+        its most stored chunks on a row; refinement intersects the
+        summaries first and touches only live chunks.
+
+    The scheduler picks the layout once, at construction
+    (kernels.config.use_hbm_adjacency); :func:`refine_eq2_mq` branches
+    on ``chunk_data is not None``.
+    """
+    adj_bitmap: torch.Tensor | None   # int32 [V, W] packed adjacency
     n_vertices: int
+    adj_summary: torch.Tensor | None = None  # int32 [V, SW] chunk summary
+    chunk_ptr: torch.Tensor | None = None    # int32 [V + 1] CSR over chunks
+    chunk_id: torch.Tensor | None = None     # int32 [n_stored + kmax]
+    chunk_data: torch.Tensor | None = None   # int32 [n_stored + kmax, C]
+    kmax: int = 0                            # most stored chunks on a row
 
 
 class QueryBank(NamedTuple):
@@ -75,7 +96,7 @@ class QueryBank(NamedTuple):
     learn: torch.Tensor          # bool [S] — slot stores patterns in-loop
 
     @staticmethod
-    def empty(n_slots: int, w: int, device="cpu") -> "QueryBank":
+    def empty(n_slots: int, w: int, device) -> "QueryBank":
         return QueryBank(
             cand_bitmap=torch.zeros((n_slots, N_PAD, w), dtype=I32,
                                     device=device),
@@ -102,7 +123,7 @@ class StackBank(NamedTuple):
 
     @staticmethod
     def empty(n_slots: int, depth_cap: int, w: int,
-              device="cpu") -> "StackBank":
+              device) -> "StackBank":
         s, d = n_slots, depth_cap
 
         def z(*shape, dtype=I32, fill=0):
@@ -295,14 +316,18 @@ def refine_eq2_mq(g: GraphArrays, qb: QueryBank, query_slot: torch.Tensor,
                   ) -> torch.Tensor:
     """Eq. 2 candidate refinement for a mixed-query wave:
     C'(row) = cand[qid, depth] ∩ ⋂_{p < depth, p ~q depth} N(frontier[p]).
-    Returns the packed candidates int32 [F, W]."""
+    Returns the packed candidates int32 [F, W]. The adjacency layout of
+    ``g`` picks the dense or the hierarchical refine."""
     d = depth.clamp(0, N_PAD - 1)
     acc0 = qb.cand_bitmap[query_slot, d]                     # [F, W]
     pos = torch.arange(N_PAD, device=depth.device)
     active = qb.nbr_mask[query_slot, d] & (pos[None, :] < depth[:, None])
-    return refine_bitmap_rows(g.adj_bitmap, acc0,
-                              frontier.to(I32).contiguous(),
-                              active.to(I32))
+    frontier = frontier.to(I32).contiguous()
+    if g.chunk_data is not None:
+        return refine_bitmap_rows_hier(g.adj_summary, g.chunk_ptr,
+                                       g.chunk_id, g.chunk_data, g.kmax,
+                                       acc0, frontier, active.to(I32))
+    return refine_bitmap_rows(g.adj_bitmap, acc0, frontier, active.to(I32))
 
 
 def deadend_lookup_children_mq(tb: PatternStoreBank, phi: torch.Tensor,

@@ -18,12 +18,16 @@ cross-query template cache behave as in the reference, so per-query
 results and counters match it.
 
 ``device`` (default ``"cuda"``) places every bank; without a card the
-default raises. Two parts of the reference are not ported yet and raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item: the
-hierarchical adjacency layout, and fault injection with dispatch retry /
-quarantine / host fallback (``faults``, ``dispatch_timeout_s``). A
-dispatch exception propagates out of ``step()``; a digest that fails
-validation raises.
+default raises. The adjacency layout is picked at construction as in the
+reference: the dense packed block below 16384 data-graph vertices
+(``"dense-vmem"`` in ``scheduler_stats()``), the two-level layout of
+``core.graph.HierBitmap`` at or above it (``"hier-hbm"``), unless
+``hier_adjacency`` pins one; every refine then goes through the dense or
+the hierarchical kernel. One part of the reference is not ported yet and
+raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: fault
+injection with dispatch retry / quarantine / host fallback (``faults``,
+``dispatch_timeout_s``). A dispatch exception propagates out of
+``step()``; a digest that fails validation raises.
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ import numpy as np
 import torch
 
 from ..api.options import MatchOptions
-from ..kernels.config import resolve_device, use_hbm_adjacency
+from ..kernels.config import (kernel_chunk_words, kernel_dma_depth,
+                              resolve_device, use_hbm_adjacency)
 from ..patterns import (DeadEndStats, PatternCache, PatternStore,
                         PatternStoreBank, age_hits, empty_entries,
                         entries_to_store, store_to_entries)
@@ -162,12 +167,6 @@ class WaveScheduler:
         if opts.faults is not None or opts.dispatch_timeout_s is not None:
             raise _unported("fault injection / dispatch watchdog",
                             "faults, retry, quarantine and host fallback")
-        use_hier = (bool(opts.hier_adjacency)
-                    if opts.hier_adjacency is not None
-                    else use_hbm_adjacency(data.n))
-        if use_hier:
-            raise _unported("the hierarchical adjacency layout",
-                            "slice 2, the hierarchical refine kernel")
         tuned, self.tuning_record = opts.resolved_engine(
             backend=None, n_vertices=data.n)
         self.n_slots = tuned["n_slots"]
@@ -203,11 +202,39 @@ class WaveScheduler:
         self._ring_capacity = 2 * self.wave_size * (self._mega_kpr + 1)
         self._emb_cap = 2 * self.wave_size * self._mega_kpr
         self.w = (data.n + 31) // 32
-        self.g = GraphArrays(
-            adj_bitmap=_i32(data.adj_bitmap, self.device),
-            n_vertices=data.n)
-        self.adjacency_variant = "dense"
-        self.adjacency_bytes = data.n * self.w * 4
+        # adjacency layout: the options pin wins, else the size
+        # threshold decides. The hierarchical layout never materialises
+        # the dense [V, W] block (537 MB at 64K vertices).
+        use_hier = (bool(opts.hier_adjacency)
+                    if opts.hier_adjacency is not None
+                    else use_hbm_adjacency(data.n))
+        if use_hier:
+            cw = (int(opts.chunk_words) if opts.chunk_words is not None
+                  else kernel_chunk_words(data.n))
+            # accepted for parity with the reference; the kernel does
+            # not read it
+            self.dma_depth = (int(opts.dma_depth)
+                              if opts.dma_depth is not None
+                              else kernel_dma_depth(data.n))
+            hb = data.hier_bitmap(chunk_words=cw)
+            self.chunk_words = cw
+            self.g = GraphArrays(
+                adj_bitmap=None, n_vertices=data.n,
+                adj_summary=_i32(hb.summary, self.device),
+                chunk_ptr=_i32(hb.chunk_ptr, self.device),
+                chunk_id=_i32(hb.chunk_id, self.device),
+                chunk_data=_i32(hb.chunk_data, self.device),
+                kmax=hb.kmax)
+            self.adjacency_variant = "hier-hbm"
+            self.adjacency_bytes = int(hb.nbytes)
+        else:
+            self.chunk_words = 0
+            self.dma_depth = None
+            self.g = GraphArrays(
+                adj_bitmap=_i32(data.adj_bitmap, self.device),
+                n_vertices=data.n)
+            self.adjacency_variant = "dense-vmem"
+            self.adjacency_bytes = data.n * self.w * 4
         self.qb = QueryBank.empty(self.n_slots, self.w, self.device)
         self.tb = PatternStoreBank.empty(self.n_slots,
                                          self.pattern_capacity, self.device)
@@ -1695,6 +1722,7 @@ class WaveScheduler:
             "device_stacks": self._use_device,
             "adjacency_variant": self.adjacency_variant,
             "adjacency_bytes": self.adjacency_bytes,
+            "chunk_words": self.chunk_words,
             "pattern_capacity": self.pattern_capacity,
             "store_stored": self.store_counters["stored"],
             "store_overwrites": self.store_counters["overwrites"],

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..core.graph import Graph
+from ..core.graph import Graph, degree_descending_order
 
 
 def _zipf_labels(rng: np.random.Generator, n: int, n_labels: int,
@@ -47,6 +47,63 @@ def ba_labeled_graph(n: int, m_attach: int, n_labels: int,
             edges.append((int(a), int(b)))
     labels = _zipf_labels(rng, n, n_labels)
     return Graph.from_edges(n, edges, labels, n_labels)
+
+
+def powerlaw_graph(n: int, m_attach: int = 3, n_labels: int = 16,
+                   seed: int = 0, degree_sorted: bool = True) -> Graph:
+    """BA-style labeled power-law graph, vectorized for large ``n``.
+
+    ``ba_labeled_graph`` keeps a growing Python list of repeated
+    endpoints and draws with ``rng.choice`` over it per vertex — fine at
+    512 vertices, minutes at 64K. Here the endpoint pool is a
+    preallocated array (each vertex appends at most ``2 * m_attach``
+    entries) and each step draws ``m_attach`` uniform *indices* into the
+    filled prefix, which is exactly degree-proportional sampling; the
+    per-vertex work is a handful of O(m) numpy ops, so 64K vertices
+    build in seconds.
+
+    ``degree_sorted=True`` relabels the result in degree-descending
+    order — the locality transform the hierarchical adjacency layout
+    (core.graph.HierBitmap) wants: hubs take the low vertex ids, so
+    every row's neighbor bits concentrate in the low chunks, stored
+    chunk counts stay small and the summary intersection kills more of
+    the chunk walk.
+    """
+    rng = np.random.default_rng(seed)
+    if n <= 1:
+        return Graph.from_edges(n, [], _zipf_labels(rng, max(n, 1),
+                                                    n_labels)[:n], n_labels)
+    m = int(max(1, min(m_attach, n - 1)))
+    if n <= m + 1:                     # degenerate tiny graph: clique
+        edges = [(a, b) for a in range(n) for b in range(a)]
+        return Graph.from_edges(n, edges, _zipf_labels(rng, n, n_labels),
+                                n_labels)
+    src = np.empty(m * n, np.int64)
+    dst = np.empty(m * n, np.int64)
+    pool = np.empty(2 * m * n, np.int64)
+    ne = ps = 0
+    # seed: vertex m attaches to every earlier vertex once
+    src[:m] = m
+    dst[:m] = np.arange(m)
+    pool[:m] = m
+    pool[m:2 * m] = np.arange(m)
+    ne = m
+    ps = 2 * m
+    for v in range(m + 1, n):
+        targets = np.unique(pool[rng.integers(0, ps, size=m)])
+        k = targets.size
+        src[ne:ne + k] = v
+        dst[ne:ne + k] = targets
+        ne += k
+        pool[ps:ps + k] = targets
+        pool[ps + k:ps + k + m] = v
+        ps += k + m
+    edges = list(zip(src[:ne].tolist(), dst[:ne].tolist()))
+    labels = _zipf_labels(rng, n, n_labels)
+    g = Graph.from_edges(n, edges, labels, n_labels)
+    if degree_sorted:
+        g = g.relabel(degree_descending_order(g))
+    return g
 
 
 def er_labeled_graph(n: int, n_edges: int, n_labels: int,

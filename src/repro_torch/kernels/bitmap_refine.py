@@ -1,18 +1,21 @@
-"""Eq. 2 refinement kernel: wrapper, build and launch count.
+"""Eq. 2 refinement kernels: wrappers, build and launch counts.
 
 :func:`refine_bitmap_rows` is the port of the reference's Pallas kernel
-of the same name (``repro/kernels/bitmap_refine.py``). For a CUDA tensor
-it launches the hand-written kernel in ``csrc/bitmap_refine.cu``; for a
-CPU tensor it runs the plain version, ``ref.refine_bitmap_rows_ref``.
-There is no fallback from one to the other: a CUDA call either launches
-or raises.
+of the same name (``repro/kernels/bitmap_refine.py``), over the dense
+packed adjacency; :func:`refine_bitmap_rows_hier` ports
+``refine_bitmap_rows_hier``, over the two-level layout
+(``core.graph.HierBitmap``) that graphs of 16384 or more vertices use.
+For a CUDA tensor each launches its hand-written kernel in ``csrc/``;
+for a CPU tensor it runs its plain version in ``ref.py``. There is no
+fallback from one to the other: a CUDA call either launches or raises.
 
-The kernel is compiled with ``nvcc`` into a shared library with a plain
-C interface and bound with ``ctypes`` — seconds to build, against the
-minutes a source that includes PyTorch's headers takes. The build runs
-at first use, into ``build/repro_torch/`` at the repository root (listed
-in ``.gitignore``), keyed by a hash of the source, so importing this
-module builds nothing.
+Each kernel is compiled with ``nvcc`` into a shared library with a
+plain C interface and bound with ``ctypes`` — seconds to build, against
+the minutes a source that includes PyTorch's headers takes. The build
+runs at first use, into ``build/repro_torch/`` at the repository root
+(listed in ``.gitignore``), keyed by a hash of the source, so importing
+this module builds nothing. :func:`build_all` compiles every source at
+once, one ``nvcc`` process each.
 """
 from __future__ import annotations
 
@@ -28,16 +31,19 @@ from pathlib import Path
 import torch
 
 from .config import backend_for
-from .ref import refine_bitmap_rows_ref
+from .ref import refine_bitmap_rows_hier_ref, refine_bitmap_rows_ref
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "bitmap_refine.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {"refine_bitmap_rows": CSRC / "bitmap_refine.cu",
+           "refine_bitmap_rows_hier": CSRC / "bitmap_refine_hier.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 MAX_POSITIONS = 64
 
 LAUNCHES = 0            # kernel launches made by refine_bitmap_rows
-_lib = None
+HIER_LAUNCHES = 0       # kernel launches made by refine_bitmap_rows_hier
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -48,44 +54,70 @@ def _nvcc() -> str:
     return path
 
 
-def build(verbose: bool = False) -> tuple[Path, float, str]:
-    """Compile the kernel library if it is not built yet.
+def _target(name: str) -> Path:
+    src = SOURCES[name]
+    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
-    Returns ``(library path, build seconds, compiler output)``; seconds
-    is 0.0 when a library for this exact source already existed.
-    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills).
+
+def build_all(names=None, verbose: bool = False
+              ) -> dict[str, tuple[Path, float, str]]:
+    """Compile the named kernel libraries (all by default) that are not
+    built yet, one ``nvcc`` process each, all started together.
+
+    Returns ``{name: (library path, build seconds, compiler output)}``;
+    seconds is 0.0 for a library that already existed for this exact
+    source. ``verbose`` adds ``-Xptxas -v`` (registers, shared memory,
+    spills).
     """
-    digest = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libbitmap_refine_{digest}.so"
-    if lib.exists():
-        return lib, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, secs, proc.stdout + proc.stderr
+    names = list(SOURCES) if names is None else list(names)
+    done, running = {}, {}
+    for name in names:
+        lib = _target(name)
+        if lib.exists():
+            done[name] = (lib, 0.0, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", tmp, str(SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, lib, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, lib, t0) in running.items():
+        log, _ = proc.communicate()
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed on {SOURCES[name].name} "
+                          f"({proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, lib)
+        done[name] = (lib, secs, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return done
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        path, _, _ = build()
+def _library(name: str = "refine_bitmap_rows") -> ctypes.CDLL:
+    if name not in _libs:
+        path, _, _ = build_all([name])[name]
         lib = ctypes.CDLL(str(path))
-        fn = lib.refine_bitmap_rows_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
+        if name == "refine_bitmap_rows":
+            fn = lib.refine_bitmap_rows_launch
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+                + [ctypes.c_void_p]
+        else:
+            fn = lib.refine_bitmap_rows_hier_launch
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
+                + [ctypes.c_void_p]
+            lib.refine_bitmap_rows_hier_max_smem.argtypes = []
+            lib.refine_bitmap_rows_hier_max_smem.restype = ctypes.c_int
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device,
@@ -129,11 +161,84 @@ def refine_bitmap_rows(adj_bitmap: torch.Tensor, cand_rows: torch.Tensor,
     if f == 0 or w == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _library().refine_bitmap_rows_launch(
+    err = _library("refine_bitmap_rows").refine_bitmap_rows_launch(
         adj_bitmap.data_ptr(), cand_rows.data_ptr(), frontier.data_ptr(),
         active.data_ptr(), out.data_ptr(), v, w, f, np_, stream)
     if err != 0:
         raise RuntimeError(f"refine_bitmap_rows launch failed: CUDA "
                            f"error {err}")
     LAUNCHES += 1
+    return out
+
+
+def refine_bitmap_rows_hier(summary: torch.Tensor, chunk_ptr: torch.Tensor,
+                            chunk_id: torch.Tensor, chunk_data: torch.Tensor,
+                            kmax: int, cand_rows: torch.Tensor,
+                            frontier: torch.Tensor, active: torch.Tensor,
+                            dma_depth: int | None = None) -> torch.Tensor:
+    """Eq. 2 refinement over the two-level adjacency layout.
+
+    ``summary`` int32 [V, SW], ``chunk_ptr`` int32 [V + 1], ``chunk_id``
+    int32 [P + kmax], ``chunk_data`` int32 [P + kmax, C] (C a power of
+    two <= 128), ``kmax`` the layout's most stored chunks on a row;
+    ``cand_rows`` int32 [F, W], ``frontier`` / ``active`` int32 [F, NP].
+    Returns int32 [F, W]. Same semantics as
+    ``ref.refine_bitmap_rows_hier_ref``. ``dma_depth`` is accepted for
+    parity with the reference (its chunk-copy pipeline depth); the CUDA
+    kernel does not read it and it changes no bit.
+    """
+    if dma_depth is not None and int(dma_depth) < 1:
+        raise ValueError(f"dma_depth must be >= 1, got {dma_depth!r}")
+    if backend_for(cand_rows) == "torch":
+        return refine_bitmap_rows_hier_ref(summary, chunk_ptr, chunk_id,
+                                           chunk_data, kmax, cand_rows,
+                                           frontier, active)
+    global HIER_LAUNCHES
+    dev = cand_rows.device
+    for name, t, nd in (("summary", summary, 2), ("chunk_ptr", chunk_ptr, 1),
+                        ("chunk_id", chunk_id, 1),
+                        ("chunk_data", chunk_data, 2),
+                        ("cand_rows", cand_rows, 2),
+                        ("frontier", frontier, 2), ("active", active, 2)):
+        _check(name, t, dev, nd)
+    v, sw = summary.shape
+    n_store, c = chunk_data.shape
+    f, np_ = frontier.shape
+    w = cand_rows.shape[1]
+    if (chunk_ptr.shape[0] != v + 1 or chunk_id.shape[0] != n_store
+            or cand_rows.shape[0] != f or active.shape != (f, np_)):
+        raise ValueError("shape mismatch: summary [V, SW], chunk_ptr "
+                         "[V + 1], chunk_id [P], chunk_data [P, C], cand "
+                         "[F, W], frontier/active [F, NP]")
+    if np_ > MAX_POSITIONS or v < 1:
+        raise ValueError(f"need 1 <= V and NP <= {MAX_POSITIONS}")
+    if c < 1 or c > 128 or c & (c - 1):
+        raise ValueError(f"chunk width {c} is not a power of two in "
+                         "[1, 128]")
+    if sw * 32 * c < w:
+        raise ValueError(f"{sw} summary words of {c}-word chunks cover "
+                         f"fewer than W = {w} words")
+    out = torch.empty_like(cand_rows)
+    if f == 0 or w == 0:
+        return out
+    lib = _library("refine_bitmap_rows_hier")
+    smem = 4 * (w + sw)
+    if smem > 48 * 1024:
+        limit = lib.refine_bitmap_rows_hier_max_smem()
+        if limit < 0:
+            raise RuntimeError(f"refine_bitmap_rows_hier: CUDA error "
+                               f"{-limit} reading the shared-memory limit")
+        if smem > limit:
+            raise ValueError(
+                f"refine_bitmap_rows_hier keeps a row of W = {w} words in "
+                f"shared memory ({smem} bytes); this card allows {limit}")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.refine_bitmap_rows_hier_launch(
+        summary.data_ptr(), chunk_ptr.data_ptr(), chunk_id.data_ptr(),
+        chunk_data.data_ptr(), cand_rows.data_ptr(), frontier.data_ptr(),
+        active.data_ptr(), out.data_ptr(), v, sw, c, w, f, np_, stream)
+    if err != 0:
+        raise RuntimeError(f"refine_bitmap_rows_hier launch failed: CUDA "
+                           f"error {err}")
+    HIER_LAUNCHES += 1
     return out

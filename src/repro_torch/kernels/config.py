@@ -28,8 +28,17 @@ DEFAULT_BLOCK_F = 8     # refine row-block height, kept for knob parity
                         # with the reference (the CUDA kernel does not
                         # read it: one block per row)
 
+DEFAULT_CHUNK_WORDS = 8  # hierarchical layout: packed words per chunk
+                         # (C) — 256 vertices of coverage per summary bit
+DEFAULT_DMA_DEPTH = 2    # kept for knob parity with the reference's
+                         # chunk-copy pipeline (the CUDA kernel does not
+                         # read it)
+
 # Dense/hierarchical threshold, as in the reference: at or above this
-# many data-graph vertices the two-level layout is used — not ported yet.
+# many data-graph vertices the two-level layout (core.graph.HierBitmap)
+# and the hierarchical refine kernel are used. Where the threshold
+# belongs on Hopper is a tuning question: the dense block of a 64K-vertex
+# graph (537 MB) would fit on the card.
 HBM_ADJACENCY_MIN_VERTICES = 16384
 
 
@@ -76,6 +85,18 @@ def backend_for(t: torch.Tensor) -> str:
                                f"on {t.device}")
         return _forced
     return "cuda" if t.is_cuda else "torch"
+
+
+def kernel_chunk_words(n_vertices: int | None = None) -> int:
+    """Hierarchical chunk width C (words per chunk). The port has no
+    tuning cache yet, so this is the built-in default at every size."""
+    return DEFAULT_CHUNK_WORDS
+
+
+def kernel_dma_depth(n_vertices: int | None = None) -> int:
+    """Chunk-copy depth of the hierarchical refine (built-in default;
+    accepted for parity, not read by the CUDA kernel)."""
+    return DEFAULT_DMA_DEPTH
 
 
 def use_hbm_adjacency(n_vertices: int | None) -> bool:

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from .bitops import to_i32
+
 
 def refine_bitmap_rows_ref(adj_bitmap: torch.Tensor, cand_rows: torch.Tensor,
                            frontier: torch.Tensor, active: torch.Tensor
@@ -39,3 +41,109 @@ def refine_bitmap_rows_ref(adj_bitmap: torch.Tensor, cand_rows: torch.Tensor,
     if np_ == 0:
         return cand_rows.clone()
     return cand_rows & rows[:, 0]
+
+
+def _and_fold(rows: torch.Tensor) -> torch.Tensor:
+    """AND-reduce int32 ``rows`` [F, K, ...] over axis 1 (pairwise:
+    torch has no AND-reduction); K == 0 gives all-ones."""
+    if rows.shape[1] == 0:
+        return torch.full_like(rows[:, :1], -1)[:, 0]
+    while rows.shape[1] > 1:
+        if rows.shape[1] % 2:
+            rows = torch.cat([rows, torch.full_like(rows[:, :1], -1)], 1)
+        half = rows.shape[1] // 2
+        rows = rows[:, :half] & rows[:, half:]
+    return rows[:, 0]
+
+
+def summary_intersect_ref(summary: torch.Tensor, cand_rows: torch.Tensor,
+                          frontier: torch.Tensor, active: torch.Tensor,
+                          chunk_words: int) -> torch.Tensor:
+    """First level of the hierarchical refinement:
+
+        sacc[i] = cand_summary[i] & AND_{p active, frontier >= 0}
+                  summary[min(frontier[i, p], V - 1)]
+
+    where bit ``c`` of ``cand_summary[i]`` is set iff any of the C words
+    of chunk ``c`` of ``cand_rows[i]`` is nonzero. A chunk dead in
+    ``sacc`` is zero in the dense result. Returns int32 [F, SW].
+    """
+    v, sw = summary.shape
+    f, np_ = frontier.shape
+    w = cand_rows.shape[1]
+    c = int(chunk_words)
+    ncp = sw * 32
+    dev = cand_rows.device
+    cpad = torch.zeros((f, ncp * c), dtype=torch.int32, device=dev)
+    cpad[:, :w] = cand_rows
+    live = (cpad.reshape(f, ncp, c) != 0).any(dim=2)
+    shifts = torch.arange(32, device=dev)
+    cand_sum = to_i32((live.reshape(f, sw, 32).to(torch.int64) << shifts)
+                      .sum(dim=2))
+    act = (active != 0) & (frontier >= 0)
+    rows = summary[frontier.clamp(0, v - 1).long()]          # [F, NP, SW]
+    rows = torch.where(act[:, :, None], rows,
+                       torch.full((), -1, dtype=rows.dtype, device=dev))
+    return cand_sum & _and_fold(rows)
+
+
+def refine_bitmap_rows_hier_ref(summary: torch.Tensor,
+                                chunk_ptr: torch.Tensor,
+                                chunk_id: torch.Tensor,
+                                chunk_data: torch.Tensor, kmax: int,
+                                cand_rows: torch.Tensor,
+                                frontier: torch.Tensor, active: torch.Tensor,
+                                positions: int | None = None
+                                ) -> torch.Tensor:
+    """Eq. 2 refinement over the two-level layout (core.graph.HierBitmap).
+
+    ``summary`` int32 [V, SW], ``chunk_ptr`` int32 [V + 1], ``chunk_id``
+    int32 [P + kmax], ``chunk_data`` int32 [P + kmax, C], ``kmax`` the
+    layout's most stored chunks on a row; ``cand_rows`` int32 [F, W],
+    ``frontier`` / ``active`` int32 [F, NP]. Returns int32 [F, W].
+
+    The summary intersection (:func:`summary_intersect_ref`) zeroes the
+    dead chunks of ``cand``; then each active position's row, rebuilt
+    from its stored chunks, is ANDed in. On frontier values in
+    ``[-1, V)`` this is the dense result on the same graph. A frontier
+    value past V - 1 follows the reference's hierarchical kernel: it
+    ANDs ``summary[V - 1]`` and no chunk (``chunk_ptr`` is clamped at
+    index V, so its chunk window is empty). The layout's summaries must
+    match its store, as ``build_hier_bitmap`` makes them.
+
+    The rebuilt row is a scatter of the ``kmax``-chunk window into
+    ``ncp + 1`` chunks, the last one taking the window's padding and
+    being sliced off. Positions run up to the deepest active one, read
+    from the data (a host sync on the card) unless ``positions`` gives
+    that bound; positions past it must be inactive.
+    """
+    v, sw = summary.shape
+    f, np_ = frontier.shape
+    w = cand_rows.shape[1]
+    c = chunk_data.shape[1]
+    ncp = sw * 32
+    dev = cand_rows.device
+    sacc = summary_intersect_ref(summary, cand_rows, frontier, active, c)
+    shifts = torch.arange(32, device=dev)
+    livebit = (sacc[:, :, None] >> shifts) & 1              # [F, SW, 32]
+    mask = livebit.reshape(f, ncp, 1).expand(f, ncp, c).reshape(
+        f, ncp * c)[:, :w]
+    out = cand_rows & -mask.to(torch.int32)
+    act = (active != 0) & (frontier >= 0) & (frontier < v)
+    if positions is None:
+        cols = act.any(dim=0).nonzero()
+        positions = int(cols.max()) + 1 if cols.numel() else 0
+    win = torch.arange(kmax, device=dev)
+    for p in range(positions):
+        vtx = frontier[:, p].clamp(0, v - 1).long()
+        k0 = chunk_ptr[vtx].long()
+        nk = chunk_ptr[vtx + 1].long() - k0
+        ks = k0[:, None] + win[None, :]                      # [F, kmax]
+        km = win[None, :] < nk[:, None]
+        ids = torch.where(km, chunk_id[ks].long(), ncp)
+        data = torch.where(km[:, :, None], chunk_data[ks], 0)
+        rows = torch.zeros((f, ncp + 1, c), dtype=torch.int32, device=dev)
+        rows.scatter_(1, ids[:, :, None].expand(f, kmax, c), data)
+        rows = rows[:, :ncp].reshape(f, ncp * c)[:, :w]
+        out = torch.where(act[:, p, None], out & rows, out)
+    return out

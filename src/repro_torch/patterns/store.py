@@ -49,7 +49,7 @@ class PatternStore(NamedTuple):
     hits: torch.Tensor       # int32 [C] device hit counter (aged)
 
     @staticmethod
-    def empty(capacity: int, device="cpu") -> "PatternStore":
+    def empty(capacity: int, device) -> "PatternStore":
         c = _check_capacity(capacity)
         return PatternStore(
             key_pos=torch.full((c,), -1, dtype=I32, device=device),
@@ -77,7 +77,7 @@ class PatternStoreBank(NamedTuple):
 
     @staticmethod
     def empty(n_slots: int, capacity: int,
-              device="cpu") -> "PatternStoreBank":
+              device) -> "PatternStoreBank":
         c = _check_capacity(capacity)
         s = n_slots
         return PatternStoreBank(
@@ -98,7 +98,7 @@ class StoreCounters(NamedTuple):
     dropped: torch.Tensor
 
     @staticmethod
-    def zeros(n_slots: int, device="cpu") -> "StoreCounters":
+    def zeros(n_slots: int, device) -> "StoreCounters":
         z = torch.zeros((n_slots,), dtype=I32, device=device)
         return StoreCounters(z, z, z, z)
 
@@ -362,7 +362,7 @@ def store_to_entries(store: PatternStore,
 
 
 def entries_to_store(entries: dict, capacity: int,
-                     device="cpu") -> PatternStore:
+                     device) -> PatternStore:
     """Rebuild a store from an entries dict (any capacity): hottest
     first, same hash/probe layout as the device, a full window drops
     the (colder) newcomer — the reference's placement exactly."""

@@ -46,25 +46,29 @@ def _lanes_equal(jax_nt, torch_nt, where):
         np.testing.assert_array_equal(v, want, err_msg=f"{where}: {k}")
 
 
-@pytest.mark.parametrize("t_max", [1, 6])
-@pytest.mark.parametrize("workload", ["uniform", "trap", "corridor"])
-def test_device_megastep_digest_matches_reference(monkeypatch, workload,
-                                                  t_max):
-    monkeypatch.setenv("REPRO_TUNING_DISABLE", "1")
-    data, queries = _workload(workload)
+def admitted_reference(data, queries, **knobs):
+    """A reference scheduler with ``queries`` admitted onto device
+    stacks, and its active queries in slot order."""
     ref = JaxScheduler(data, n_slots=SLOTS, wave_size=WAVE, kpr=KPR // 2,
                        stack_capacity=STACK, pattern_capacity=CAP,
-                       megastep_depth=6, limit=None)
+                       megastep_depth=6, limit=None, **knobs)
     for q in queries:
         ref.submit(q)
     ref._admit()
     active_q = sorted(ref.pool.active_queries(), key=lambda q: q.slot)
     assert active_q and all(q.device for q in active_q)
+    return ref, active_q
 
-    g_t = convert.graph_arrays(np.asarray(ref.g.adj_bitmap))
-    qb_t = convert.query_bank(ref.qb)
-    tb_t = convert.store_bank(ref.tb)
-    sb_t = convert.stack_bank(ref.sb)
+
+def megastep_lockstep(ref, active_q, t_max, where):
+    """Drive the reference's and the port's ``run_device_megastep``
+    from the reference's admitted state with the same root batches
+    until every query is finished; every lane must be equal after
+    every dispatch."""
+    g_t = convert.graph_arrays(ref.g, "cpu")
+    qb_t = convert.query_bank(ref.qb, "cpu")
+    tb_t = convert.store_bank(ref.tb, "cpu")
+    sb_t = convert.stack_bank(ref.sb, "cpu")
     tb_j, sb_j = ref.tb, ref.sb
 
     f_in = 2 * WAVE
@@ -97,10 +101,10 @@ def test_device_megastep_digest_matches_reference(monkeypatch, workload,
             torch.from_numpy(in_rid), torch.from_numpy(in_slot),
             torch.from_numpy(in_valid), torch.from_numpy(active), id_base,
             True, t_max, kpr=KPR, emb_cap=emb_cap, wave=WAVE)
-        where = f"{workload} t_max={t_max} dispatch {dispatch}"
-        _lanes_equal(res_j, res_t, where)
-        _lanes_equal(res_j.tb, res_t.tb, where + " store bank")
-        _lanes_equal(res_j.sb, res_t.sb, where + " stack bank")
+        at = f"{where} dispatch {dispatch}"
+        _lanes_equal(res_j, res_t, at)
+        _lanes_equal(res_j.tb, res_t.tb, at + " store bank")
+        _lanes_equal(res_j.sb, res_t.sb, at + " stack bank")
         tb_j, sb_j = res_j.tb, res_j.sb
         id_base += t_max * f_in * KPR
         acc = np.asarray(res_j.d_accepted)
@@ -108,9 +112,18 @@ def test_device_megastep_digest_matches_reference(monkeypatch, workload,
             cursor[q.slot] += int(acc[q.slot])
         done = all(cursor[q.slot] >= len(q.pending_roots) for q in active_q)
         if done and not np.asarray(res_j.d_live).any():
-            break
-    else:
-        pytest.fail("queries did not finish within 200 dispatches")
+            return
+    pytest.fail("queries did not finish within 200 dispatches")
+
+
+@pytest.mark.parametrize("t_max", [1, 6])
+@pytest.mark.parametrize("workload", ["uniform", "trap", "corridor"])
+def test_device_megastep_digest_matches_reference(monkeypatch, workload,
+                                                  t_max):
+    monkeypatch.setenv("REPRO_TUNING_DISABLE", "1")
+    ref, active_q = admitted_reference(*_workload(workload))
+    assert ref.g.chunk_data is None
+    megastep_lockstep(ref, active_q, t_max, f"{workload} t_max={t_max}")
 
 
 def test_extract_topk_packed_matches_reference():
@@ -153,8 +166,8 @@ def test_refine_eq2_matches_reference_contraction(seed):
                                              jnp.int32(v)),
                              qb_j, jnp.asarray(slot), jnp.asarray(frontier),
                              jnp.asarray(depth))
-    got = tes.refine_eq2_mq(convert.graph_arrays(adj),
-                            convert.query_bank(qb_j),
+    got = tes.refine_eq2_mq(convert.graph_arrays(adj, "cpu"),
+                            convert.query_bank(qb_j, "cpu"),
                             torch.from_numpy(slot).long(),
                             torch.from_numpy(frontier),
                             torch.from_numpy(depth).long())

@@ -73,14 +73,14 @@ def test_host_megastep_matches_reference(monkeypatch, workload):
           rng.integers(0, 2**32, (n, 2), dtype=np.uint64).astype(np.uint32),
           rng.random(n) < 0.7)
     ring, emb_cap = 2 * WAVE * (KPR + 1), 2 * WAVE * KPR
-    tb_t = convert.store_bank(ref.tb)
+    tb_t = convert.store_bank(ref.tb, "cpu")
     want = jes.run_megastep_mq(
         ref.g, ref.qb, ref.tb, fr, us, ph, valid, slot_v, depth_v, *st,
         np.int32(100), True, kpr=KPR, k_depth=4, capacity=ring,
         emb_cap=emb_cap, backend="jnp")
     got = tes.run_megastep_mq(
-        convert.graph_arrays(np.asarray(ref.g.adj_bitmap)),
-        convert.query_bank(ref.qb), tb_t, _t(fr), _t(us), _t(ph),
+        convert.graph_arrays(np.asarray(ref.g.adj_bitmap), "cpu"),
+        convert.query_bank(ref.qb, "cpu"), tb_t, _t(fr), _t(us), _t(ph),
         _t(valid), _t(slot_v), _t(depth_v), *map(_t, st), 100, True,
         kpr=KPR, k_depth=4, capacity=ring, emb_cap=emb_cap)
     assert int(got.tail) > WAVE
@@ -95,9 +95,9 @@ def test_single_step_programs_match_reference(monkeypatch, workload):
     monkeypatch.setenv("REPRO_TUNING_DISABLE", "1")
     ref, (fr, us, ph, _lo, valid, slot_v, depth_v, _m) = _host_wave(
         workload)
-    g_t = convert.graph_arrays(np.asarray(ref.g.adj_bitmap))
-    qb_t = convert.query_bank(ref.qb)
-    tb_t = convert.store_bank(ref.tb)
+    g_t = convert.graph_arrays(np.asarray(ref.g.adj_bitmap), "cpu")
+    qb_t = convert.query_bank(ref.qb, "cpu")
+    tb_t = convert.store_bank(ref.tb, "cpu")
     want, tb_j = jes.expand_wave_mq(ref.g, ref.qb, ref.tb, fr, us, ph,
                                     valid, slot_v, depth_v, kpr=2,
                                     backend="jnp")

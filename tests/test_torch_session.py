@@ -93,8 +93,7 @@ def _assert_same_as_reference(data, queries, jres, tres):
             assert getattr(b.stats, k) == getattr(a.stats, k), (i, k)
 
 
-@pytest.mark.parametrize("knobs", [
-    {"hier_adjacency": True}, {"dispatch_timeout_s": 1.0}])
+@pytest.mark.parametrize("knobs", [{"dispatch_timeout_s": 1.0}])
 def test_unported_engine_paths_raise(knobs):
     data, _ = _workload("uniform")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -78,7 +78,7 @@ def test_hash_insert_and_probe_match_reference(monkeypatch, capacity,
 
     rng = np.random.default_rng(seed)
     jb = js.PatternStoreBank.empty(N_SLOTS, capacity)
-    tb = ts.PatternStoreBank.empty(N_SLOTS, capacity)
+    tb = ts.PatternStoreBank.empty(N_SLOTS, capacity, "cpu")
     for step in range(4):
         b = _batch(rng, 96, n_keys, capacity)
         rounds.append(0)
@@ -115,7 +115,7 @@ def test_congested_batch_evicts_and_drops():
     b = _batch(rng, 400, 300, 8)
     jb, jc = js.hash_insert(js.PatternStoreBank.empty(N_SLOTS, 8),
                             *_jax_args(b))
-    tb, tc = ts.hash_insert(ts.PatternStoreBank.empty(N_SLOTS, 8),
+    tb, tc = ts.hash_insert(ts.PatternStoreBank.empty(N_SLOTS, 8, "cpu"),
                             *_torch_args(b))
     _assert_bank_equal(jb, tb, "congested")
     _assert_counters_equal(jc, tc, "congested")
@@ -142,7 +142,7 @@ def test_jax_entries_load_through_convert_and_probe_identically(capacity):
     jstore = js.PatternStore(*(lane[1] for lane in jb))
     entries = js.store_to_entries(jstore)
     seed = convert.entries(entries)
-    got = ts.entries_to_store(seed, capacity)
+    got = ts.entries_to_store(seed, capacity, "cpu")
     want = js.entries_to_store(entries, capacity)
     for k in js.PatternStore._fields:
         np.testing.assert_array_equal(
@@ -181,7 +181,7 @@ def test_pattern_cache_line_seeds_the_port():
     seed = convert.entries(line)
     np.testing.assert_array_equal(
         ts.select_entries(seed, 8)["pos"], js.select_entries(line, 8)["pos"])
-    got = ts.entries_to_store(seed, 32)
+    got = ts.entries_to_store(seed, 32, "cpu")
     want = js.entries_to_store(line, 32)
     for k in js.PatternStore._fields:
         np.testing.assert_array_equal(
@@ -191,6 +191,6 @@ def test_pattern_cache_line_seeds_the_port():
 
 def test_convert_store_bank_round_trip():
     jb, _ = _filled_jax_bank(2)
-    tb = convert.store_bank(jb)
+    tb = convert.store_bank(jb, "cpu")
     _assert_bank_equal(jb, tb, "convert.store_bank")
     assert tb.mask.dtype == torch.int32 and tb.valid.dtype == torch.bool
