@@ -1,123 +1,41 @@
-"""Eq. 2 refinement kernels: wrappers, build and launch counts.
+"""Eq. 2 refinement kernels: wrappers and launch counts.
 
 :func:`refine_bitmap_rows` is the port of the reference's Pallas kernel
 of the same name (``repro/kernels/bitmap_refine.py``), over the dense
 packed adjacency; :func:`refine_bitmap_rows_hier` ports
 ``refine_bitmap_rows_hier``, over the two-level layout
 (``core.graph.HierBitmap``) that graphs of 16384 or more vertices use.
-For a CUDA tensor each launches its hand-written kernel in ``csrc/``;
-for a CPU tensor it runs its plain version in ``ref.py``. There is no
-fallback from one to the other: a CUDA call either launches or raises.
-
-Each kernel is compiled with ``nvcc`` into a shared library with a
-plain C interface and bound with ``ctypes`` — seconds to build, against
-the minutes a source that includes PyTorch's headers takes. The build
-runs at first use, into ``build/repro_torch/`` at the repository root
-(listed in ``.gitignore``), keyed by a hash of the source, so importing
-this module builds nothing. :func:`build_all` compiles every source at
-once, one ``nvcc`` process each.
+For a CUDA tensor each launches its hand-written kernel in ``csrc/``
+(built and loaded by ``build.py``); for a CPU tensor it runs its plain
+version in ``ref.py``. There is no fallback from one to the other: a
+CUDA call either launches or raises.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 
 import torch
 
+from . import build
 from .config import backend_for
 from .ref import refine_bitmap_rows_hier_ref, refine_bitmap_rows_ref
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"refine_bitmap_rows": CSRC / "bitmap_refine.cu",
-           "refine_bitmap_rows_hier": CSRC / "bitmap_refine_hier.cu"}
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
 MAX_POSITIONS = 64
 
 LAUNCHES = 0            # kernel launches made by refine_bitmap_rows
 HIER_LAUNCHES = 0       # kernel launches made by refine_bitmap_rows_hier
-_libs: dict[str, ctypes.CDLL] = {}
 
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernel can only be "
-                           "built on a machine with the CUDA toolkit")
-    return path
-
-
-def _target(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
-
-
-def build_all(names=None, verbose: bool = False
-              ) -> dict[str, tuple[Path, float, str]]:
-    """Compile the named kernel libraries (all by default) that are not
-    built yet, one ``nvcc`` process each, all started together.
-
-    Returns ``{name: (library path, build seconds, compiler output)}``;
-    seconds is 0.0 for a library that already existed for this exact
-    source. ``verbose`` adds ``-Xptxas -v`` (registers, shared memory,
-    spills).
-    """
-    names = list(SOURCES) if names is None else list(names)
-    done, running = {}, {}
-    for name in names:
-        lib = _target(name)
-        if lib.exists():
-            done[name] = (lib, 0.0, "")
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, str(SOURCES[name])]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, lib, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, lib, t0) in running.items():
-        log, _ = proc.communicate()
-        secs = time.perf_counter() - t0
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"nvcc failed on {SOURCES[name].name} "
-                          f"({proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, lib)
-        done[name] = (lib, secs, log)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return done
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "refine_bitmap_rows": {
+        "refine_bitmap_rows_launch": ([_P] * 5 + [_I] * 4 + [_P], _I)},
+    "refine_bitmap_rows_hier": {
+        "refine_bitmap_rows_hier_launch": ([_P] * 8 + [_I] * 6 + [_P], _I),
+        "refine_bitmap_rows_hier_max_smem": ([], _I)}}
 
 
 def _library(name: str = "refine_bitmap_rows") -> ctypes.CDLL:
-    if name not in _libs:
-        path, _, _ = build_all([name])[name]
-        lib = ctypes.CDLL(str(path))
-        if name == "refine_bitmap_rows":
-            fn = lib.refine_bitmap_rows_launch
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-                + [ctypes.c_void_p]
-        else:
-            fn = lib.refine_bitmap_rows_hier_launch
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
-                + [ctypes.c_void_p]
-            lib.refine_bitmap_rows_hier_max_smem.argtypes = []
-            lib.refine_bitmap_rows_hier_max_smem.restype = ctypes.c_int
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return _libs[name]
+    return build.load(name, SIGNATURES[name])
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device,
@@ -133,15 +51,16 @@ def _check(name: str, t: torch.Tensor, device: torch.device,
 
 
 def refine_bitmap_rows(adj_bitmap: torch.Tensor, cand_rows: torch.Tensor,
-                       frontier: torch.Tensor, active: torch.Tensor
-                       ) -> torch.Tensor:
+                       frontier: torch.Tensor, active: torch.Tensor,
+                       backend: str | None = None) -> torch.Tensor:
     """Eq. 2 refinement with per-row candidates and active positions.
 
     ``adj_bitmap`` int32 [V, W], ``cand_rows`` int32 [F, W], ``frontier``
     int32 [F, NP] (-1 unmapped), ``active`` int32 [F, NP]; returns int32
     [F, W]. Same semantics as ``ref.refine_bitmap_rows_ref``.
+    ``backend`` names this call's backend (``config.backend_for``).
     """
-    if backend_for(cand_rows) == "torch":
+    if backend_for(cand_rows, backend) == "torch":
         return refine_bitmap_rows_ref(adj_bitmap, cand_rows, frontier,
                                       active)
     global LAUNCHES
@@ -175,7 +94,8 @@ def refine_bitmap_rows_hier(summary: torch.Tensor, chunk_ptr: torch.Tensor,
                             chunk_id: torch.Tensor, chunk_data: torch.Tensor,
                             kmax: int, cand_rows: torch.Tensor,
                             frontier: torch.Tensor, active: torch.Tensor,
-                            dma_depth: int | None = None) -> torch.Tensor:
+                            dma_depth: int | None = None,
+                            backend: str | None = None) -> torch.Tensor:
     """Eq. 2 refinement over the two-level adjacency layout.
 
     ``summary`` int32 [V, SW], ``chunk_ptr`` int32 [V + 1], ``chunk_id``
@@ -185,11 +105,12 @@ def refine_bitmap_rows_hier(summary: torch.Tensor, chunk_ptr: torch.Tensor,
     Returns int32 [F, W]. Same semantics as
     ``ref.refine_bitmap_rows_hier_ref``. ``dma_depth`` is accepted for
     parity with the reference (its chunk-copy pipeline depth); the CUDA
-    kernel does not read it and it changes no bit.
+    kernel does not read it and it changes no bit. ``backend`` names
+    this call's backend (``config.backend_for``).
     """
     if dma_depth is not None and int(dma_depth) < 1:
         raise ValueError(f"dma_depth must be >= 1, got {dma_depth!r}")
-    if backend_for(cand_rows) == "torch":
+    if backend_for(cand_rows, backend) == "torch":
         return refine_bitmap_rows_hier_ref(summary, chunk_ptr, chunk_id,
                                            chunk_data, kmax, cand_rows,
                                            frontier, active)

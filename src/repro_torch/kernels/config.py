@@ -7,9 +7,11 @@ Two backends:
 
 By default the backend is decided by the tensor a wrapper is given: a
 CUDA tensor goes to the kernel, a CPU tensor to the plain version. A
-forced backend comes from ``REPRO_TORCH_KERNEL_BACKEND`` (its own
-variable: the JAX package's ``REPRO_KERNEL_BACKEND`` rejects names it
-does not know) or from :func:`backend_scope`. Forcing ``"torch"`` on a
+call may name its own (``backend=`` on every wrapper and op, for that
+call only). A process-wide forced backend comes from
+``REPRO_TORCH_KERNEL_BACKEND`` (its own variable: the JAX package's
+``REPRO_KERNEL_BACKEND`` rejects names it does not know) or from
+:func:`backend_scope`. Forcing ``"torch"`` on a
 CUDA tensor runs the plain version on the card — the comparison phase
 of ``chip_smoke.py`` uses exactly that. Forcing ``"cuda"`` on a CPU
 tensor raises: nothing silently falls back.
@@ -76,15 +78,20 @@ def backend_scope(name: str | None):
         set_backend(prev)
 
 
-def backend_for(t: torch.Tensor) -> str:
-    """Backend for a call on tensor ``t``: the forced one, else the
-    kernel for a CUDA tensor and the plain version for a CPU tensor."""
-    if _forced is not None:
-        if _forced == "cuda" and not t.is_cuda:
-            raise RuntimeError("kernel backend 'cuda' forced for a tensor "
-                               f"on {t.device}")
-        return _forced
-    return "cuda" if t.is_cuda else "torch"
+def backend_for(t: torch.Tensor, backend: str | None = None) -> str:
+    """Backend for a call on tensor ``t``: ``backend`` when the caller
+    names one (for this call only), else the forced one, else the kernel
+    for a CUDA tensor and the plain version for a CPU tensor."""
+    name = _forced if backend is None else backend
+    if name is None:
+        return "cuda" if t.is_cuda else "torch"
+    if name not in BACKENDS:
+        raise ValueError(f"unknown kernel backend {name!r}; choose one of "
+                         f"{BACKENDS} or None")
+    if name == "cuda" and not t.is_cuda:
+        raise RuntimeError(f"kernel backend 'cuda' forced for a tensor on "
+                           f"{t.device}")
+    return name
 
 
 def kernel_chunk_words(n_vertices: int | None = None) -> int:

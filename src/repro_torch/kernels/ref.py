@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the port's kernels (the ``ref.py`` contract).
 
 Each function here computes exactly what its kernel computes and is what
-the wrapper runs for a CPU tensor (or under ``backend_scope("torch")``).
+the wrapper runs for a CPU tensor (or with ``backend="torch"``).
 """
 from __future__ import annotations
 
@@ -147,3 +147,67 @@ def refine_bitmap_rows_hier_ref(summary: torch.Tensor,
         rows = rows[:, :ncp].reshape(f, ncp * c)[:, :w]
         out = torch.where(act[:, p, None], out & rows, out)
     return out
+
+
+SPMM_ROW_BLOCK = 4096   # rows unpacked at a time by bitmap_spmm_ref
+
+
+def unpack_rows(words: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Rows ``lo:hi`` of the 0/1 matrix packed in ``words`` (int32
+    [N, W], the bit patterns of the reference's uint32 words), as int32
+    [hi - lo, 32 W]: bit b of word w is column 32 w + b."""
+    blk = words[lo:hi]
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((blk[:, :, None] >> shifts) & 1).reshape(blk.shape[0], -1)
+
+
+def bitmap_spmm_ref(adj_words: torch.Tensor, x: torch.Tensor
+                    ) -> torch.Tensor:
+    """``A @ x`` for the 0/1 matrix A [N, M] packed in ``adj_words``
+    (int32 [N, W], the bit patterns of the reference's uint32 words; bit
+    b of word w is column 32 w + b, M = 32 W). ``x`` [M, D] f32 or bf16;
+    returns [N, D] in ``x.dtype``.
+
+    Unpacks ``SPMM_ROW_BLOCK`` rows at a time to a dense block and multiplies
+    it with ``torch.matmul`` in f64, rounding once to ``x.dtype``, so the
+    dense matrix of a large graph (17 GB at 65536 vertices) is never
+    built whole. The products are exact (A is 0/1), and the f64 sum is
+    the exact sum to well below an f32 unit: the kernel's f32 sums,
+    which carry their rounding error, are held to that. Two plain f32
+    sums in different orders differ by more than the reference's 1e-5
+    on rows of a few hundred set bits.
+    """
+    n = adj_words.shape[0]
+    xf = x.double()
+    out = torch.empty((n, x.shape[1]), dtype=x.dtype, device=x.device)
+    for i in range(0, n, SPMM_ROW_BLOCK):
+        hi = min(i + SPMM_ROW_BLOCK, n)
+        out[i:hi] = (unpack_rows(adj_words, i, hi).double() @ xf).to(x.dtype)
+    return out
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Plain softmax attention in f32, [B, H, S, D] queries against
+    [B, Hkv, Skv, D] keys and values; query head h reads kv head
+    ``h // (H // Hkv)`` (the kv heads are repeated here, in the plain
+    version only). Returns q's dtype; ``scale = D ** -0.5``.
+
+    The causal mask is the reference Pallas kernel's: key j is visible to
+    query i iff ``j <= i``, both counted from 0 (top-left aligned). The
+    reference's jnp oracle aligns it at the end (``tril(k=Skv - S)``);
+    the two agree only when ``S == Skv``.
+    """
+    group = q.shape[1] // k.shape[1]
+    if group > 1:
+        k = k.repeat_interleave(group, dim=1)
+        v = v.repeat_interleave(group, dim=1)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+        * q.shape[-1] ** -0.5
+    if causal:
+        s, t = logits.shape[-2:]
+        mask = torch.ones((s, t), dtype=torch.bool,
+                          device=q.device).tril()
+        logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.matmul(probs, v.float()).to(q.dtype)

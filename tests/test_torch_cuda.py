@@ -5,17 +5,25 @@ runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Inputs come from numpy with a seed. The refine kernel is integer AND
-over packed words: its output must equal the plain version bit for bit
-(``torch.equal``, no tolerance).
+Inputs come from numpy with a seed. The refine kernels are integer AND
+over packed words: their output must equal the plain version bit for
+bit (``torch.equal``, no tolerance). The SpMM and attention kernels sum
+in another order than their plain versions: f32 within rtol / atol 1e-5
+(SpMM) and 2e-4 (attention), the reference's own tolerances; bf16 SpMM
+within 2e-2, and bf16 attention within rtol 2e-2 with an atol of two
+bf16 units of each output row's largest value (a flat 2e-2 would exceed
+the outputs of a long softmax).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.graph import build_hier_bitmap
-from repro_torch.kernels import bitmap_refine
-from repro_torch.kernels.ref import (refine_bitmap_rows_hier_ref,
+from repro_torch.core.graph import pack_bitmap
+from repro_torch.kernels import (bitmap_refine, bitmap_spmm, flash_attention,
+                                 ops)
+from repro_torch.kernels.ref import (bitmap_spmm_ref, flash_attention_ref,
+                                     refine_bitmap_rows_hier_ref,
                                      refine_bitmap_rows_ref)
 
 pytestmark = pytest.mark.cuda
@@ -113,3 +121,106 @@ def test_cuda_hier_refine_kernel_rejects_bad_inputs(cuda_device):
                frontier, active)
     with pytest.raises(ValueError):
         refine(*lanes, kmax, cand, frontier.cpu(), active)
+
+
+def _spmm_inputs(n, w, d, density, seed, dtype):
+    rng = np.random.default_rng(seed)
+    dense = rng.random((n, 32 * w)) < density
+    dense[::3, 31::32] = True                 # bit 31: negative int32 words
+    words = torch.from_numpy(pack_bitmap(dense).view(np.int32))
+    x = torch.from_numpy(rng.standard_normal((32 * w, d)).astype(np.float32))
+    return words, x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,w,d,density", [
+    (1, 1, 1, 0.3), (33, 3, 129, 0.3), (200, 5, 16, 0.01),
+    (97, 2, 600, 0.2), (130, 147, 128, 0.008)])
+def test_cuda_spmm_kernel_matches_plain(cuda_device, n, w, d, density,
+                                        dtype):
+    words, x = (t.to(cuda_device) for t in _spmm_inputs(
+        n, w, d, density, n + d, dtype))
+    before = bitmap_spmm.SPMM_LAUNCHES
+    got = bitmap_spmm.bitmap_spmm(words, x)
+    torch.cuda.synchronize()
+    assert bitmap_spmm.SPMM_LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == (n, d)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), bitmap_spmm_ref(words, x).float(),
+                               rtol=tol, atol=tol if tol > 1e-5 else 1e-5)
+
+
+def test_cuda_spmm_kernel_rejects_bad_inputs(cuda_device):
+    words, x = (t.to(cuda_device) for t in _spmm_inputs(
+        8, 2, 4, 0.3, 0, torch.float32))
+    with pytest.raises(TypeError):
+        bitmap_spmm.bitmap_spmm(words.long(), x)
+    with pytest.raises(TypeError):
+        bitmap_spmm.bitmap_spmm(words, x.half())
+    with pytest.raises(ValueError):
+        bitmap_spmm.bitmap_spmm(words, x[:63])
+    with pytest.raises(ValueError):
+        bitmap_spmm.bitmap_spmm(words.cpu(), x)
+
+
+def _flash_inputs(b, h, hkv, s, skv, d, seed, dtype):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             ).to(dtype)
+            for shape in ((b, h, s, d), (b, hkv, skv, d), (b, hkv, skv, d))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,skv,d,causal", [
+    (1, 2, 2, 48, 48, 16, True),      # S not a multiple of the row tile
+    (2, 8, 1, 64, 80, 64, True),      # group 8, causal with S < Skv
+    (1, 4, 4, 96, 32, 48, True),      # S > Skv, D not a multiple of 32
+    (1, 4, 2, 1, 300, 128, False),    # decode, ragged key tile
+    (1, 2, 1, 40, 100, 256, True),    # D 256 (32-key tiles)
+    (1, 2, 2, 33, 33, 129, False)])   # D 129, odd everything
+def test_cuda_flash_kernel_matches_plain(cuda_device, b, h, hkv, s, skv, d,
+                                         causal, dtype):
+    q, k, v = (t.to(cuda_device) for t in _flash_inputs(
+        b, h, hkv, s, skv, d, s + d, dtype))
+    before = flash_attention.FLASH_LAUNCHES
+    got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          block_q=s, block_k=skv)
+    torch.cuda.synchronize()
+    assert flash_attention.FLASH_LAUNCHES == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype
+    got, want = got.float(), want.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:   # two bf16 units (2**-8) of each row's largest output as atol
+        atol = 2 * 2.0 ** -8 * want.abs().amax(-1, keepdim=True)
+        assert bool(((got - want).abs() <= atol + 2e-2 * want.abs()).all())
+
+
+def test_cuda_flash_kernel_rejects_bad_inputs(cuda_device):
+    q, k, v = (t.to(cuda_device) for t in _flash_inputs(
+        1, 2, 1, 64, 64, 32, 0, torch.float32))
+    big = [t.to(cuda_device) for t in _flash_inputs(
+        1, 1, 1, 8, 8, 257, 0, torch.float32)]
+    with pytest.raises(ValueError, match="256"):
+        flash_attention.flash_attention(*big)
+    with pytest.raises(ValueError, match="divide"):
+        flash_attention.flash_attention(q, k, v, block_q=48)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q, k.cpu(), v)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(q, k.bfloat16(), v)
+
+
+def test_cuda_per_call_torch_backend_runs_plain(cuda_device):
+    """``backend="torch"`` on card tensors runs the plain version for
+    that call only: no launch, and the next call launches again."""
+    words, x = (t.to(cuda_device) for t in _spmm_inputs(
+        40, 3, 8, 0.3, 1, torch.float32))
+    before = bitmap_spmm.SPMM_LAUNCHES
+    plain = ops.bitmap_spmm_op(words, x, backend="torch")
+    assert bitmap_spmm.SPMM_LAUNCHES == before
+    assert torch.equal(plain, bitmap_spmm_ref(words, x))
+    ops.bitmap_spmm_op(words, x)
+    torch.cuda.synchronize()
+    assert bitmap_spmm.SPMM_LAUNCHES == before + 1
