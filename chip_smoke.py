@@ -48,8 +48,12 @@ Drives the port (``src/repro_torch``), never the JAX package:
    Hkv 8, D 128) on (a) a causal 4096-token prefill in bf16 and f32, (b)
    a 32768-token non-causal decode step of batch 4 in bf16 and f32, and (c)
    edge cases (D 16, 64, 256; group 1 and 8; causal with S < Skv, the
-   mask top-left aligned), blocks that do not divide S or Skv having to
-   raise; and the three refine ops once each;
+   mask top-left aligned; a batch-1 decode step, the most key splits;
+   S 8 with group 8, the most rows per kv head; bf16 prefill at D 64 and
+   D 256), blocks that do not divide S or Skv having to raise; and the
+   three refine ops once each. Attention's launches are also counted by
+   route (``FLASH_ROUTES``): ``split``, ``tc`` and ``fma`` must each
+   launch;
 9. holds every op output against its plain version on the card (SpMM
    within 1e-5 in f32 and 2e-2 in bf16; attention within 2e-4 in f32
    and, in bf16, rtol 2e-2 with an atol of two bf16 units of each
@@ -57,7 +61,8 @@ Drives the port (``src/repro_torch``), never the JAX package:
 10. times SpMM (a)-(c) and attention (a)-(b): the kernel, its plain
     version, the bound, and the library call computing the same
     function (``torch.sparse.mm`` on the CSR, ``scaled_dot_product_
-    attention``).
+    attention``); each attention case must take its route (decode
+    ``split``, bf16 prefill ``tc``, f32 prefill ``fma``).
 
 Prints one ``[phase]`` info line per step (the ``done`` line gives the
 script's own seconds), then the kernel table as one JSON line, the
@@ -778,8 +783,8 @@ QWEN3_ATTN = {"h": 16, "h_kv": 8, "d": 128}   # configs/qwen3_0_6b.py
 BF16_ATOL_UNITS = 2     # bf16 attention atol, in bf16 units of a row's max
 SPMM_TIMED = ("a human f32", "a human bf16", "b cora f32", "b cora bf16",
               "c scale f32", "c scale bf16")
-FLASH_TIMED = ("a prefill bf16", "a prefill f32", "b decode bf16",
-               "b decode f32")
+FLASH_TIMED = {"a prefill bf16": "tc", "a prefill f32": "fma",
+               "b decode bf16": "split", "b decode f32": "split"}
 
 
 def random_words(rng, n: int, w: int, density: float):
@@ -848,6 +853,13 @@ def op_cases(dev, wl) -> tuple[dict, dict, list]:
     flash["c causal S<Skv"] = (*qkv(1, h, h_kv, 256, 1024, d, f32), True)
     flash["c causal S<Skv bf16"] = (*qkv(1, h, h_kv, 64, 4096, d, bf16),
                                     True)
+    flash["c decode B1 bf16"] = (*qkv(1, h, h_kv, 1, 32768, d, bf16), False)
+    flash["c S8 group8"] = (*qkv(1, 8, 1, 8, 4096, d, f32), True)
+    flash["c S8 group8 bf16"] = (*qkv(2, 8, 1, 8, 4096, d, bf16), False)
+    flash["c D64 prefill bf16"] = (*qkv(1, 8, 4, 1024, 1024, 64, bf16),
+                                   True)
+    flash["c D256 prefill bf16"] = (*qkv(1, 4, 2, 512, 768, 256, bf16),
+                                    True)
     odd = qkv(1, 2, 2, 96, 96, 64, f32)
     bad_blocks = [(odd, {"block_q": 64}), (odd, {"block_k": 64})]
     return spmm, flash, bad_blocks
@@ -862,6 +874,7 @@ def drive_ops(spmm, flash, bad_blocks, refine_args, hier_args) -> dict:
                                      flash_attention, ops)
     bitmap_refine.LAUNCHES = bitmap_refine.HIER_LAUNCHES = 0
     bitmap_spmm.SPMM_LAUNCHES = flash_attention.FLASH_LAUNCHES = 0
+    flash_attention.FLASH_ROUTES.update(split=0, tc=0, fma=0)
     out = {"spmm": {k: ops.bitmap_spmm_op(*a) for k, a in spmm.items()},
            "flash": {k: ops.flash_attention_op(q, k_, v, causal=c)
                      for k, (q, k_, v, c) in flash.items()}}
@@ -880,12 +893,17 @@ def drive_ops(spmm, flash, bad_blocks, refine_args, hier_args) -> dict:
                        "flash_attention": flash_attention.FLASH_LAUNCHES,
                        "refine_bitmap_rows": bitmap_refine.LAUNCHES,
                        "refine_bitmap_rows_hier": bitmap_refine.HIER_LAUNCHES}
+    out["flash_routes"] = dict(flash_attention.FLASH_ROUTES)
     require(raised == len(bad_blocks), "flash_attention_op took blocks that "
             "do not divide S or Skv")
     require(out["launches"] == {
         "bitmap_spmm": len(spmm), "flash_attention": len(flash),
         "refine_bitmap_rows": 2, "refine_bitmap_rows_hier": 1},
         f"op-layer launches {out['launches']}: not one per op call")
+    require(all(out["flash_routes"][r] > 0 for r in ("split", "tc", "fma"))
+            and sum(out["flash_routes"].values()) == len(flash),
+            f"attention routes {out['flash_routes']}: each route must "
+            "launch, once per op call in all")
     return out
 
 
@@ -1038,7 +1056,8 @@ def time_ops(spmm, flash) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.bitmap_spmm import bitmap_spmm
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (FLASH_ROUTES,
+                                                     flash_attention)
     from repro_torch.kernels.ref import bitmap_spmm_ref, flash_attention_ref
     out = {}
     for name in SPMM_TIMED:
@@ -1053,7 +1072,7 @@ def time_ops(spmm, flash) -> dict:
         info("spmm-time", case=name, **out[name])
         del csr
         torch.cuda.empty_cache()
-    for name in FLASH_TIMED:
+    for name, route in FLASH_TIMED.items():
         q, k, v, causal = flash[name]
         t_bytes, t_ops, counts = flash_bound(q, k, causal)
 
@@ -1066,10 +1085,16 @@ def time_ops(spmm, flash) -> dict:
         def sdpa(q, k, v, causal=causal):
             return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                   enable_gqa=True)
+        before = dict(FLASH_ROUTES)
+        ms = device_ms(kernel, [(q, k, v)])
+        taken = {r: n - before[r] for r, n in FLASH_ROUTES.items()
+                 if n != before[r]}
+        require(list(taken) == [route], f"attention {name} took routes "
+                f"{taken}, expected {route!r}")
         out[name] = timing_row(
-            device_ms(kernel, [(q, k, v)]), device_ms(plain, [(q, k, v)]),
-            library_ms(sdpa, (q, k, v)), t_bytes, t_ops,
-            eager_ms=eager_ms(kernel, [(q, k, v)]), **counts)
+            ms, device_ms(plain, [(q, k, v)]), library_ms(sdpa, (q, k, v)),
+            t_bytes, t_ops, eager_ms=eager_ms(kernel, [(q, k, v)]),
+            route=route, **counts)
         info("flash-time", case=name, **out[name])
         torch.cuda.empty_cache()
     return out
@@ -1207,7 +1232,8 @@ def main() -> int:
     op_run = drive_ops(spmm, flash, bad_blocks, refine_args, hier_args)
     op_launches = op_run["launches"]
     info("ops-run", launches=op_launches, spmm_calls=len(spmm),
-         flash_calls=len(flash), bad_blocks_raised=len(bad_blocks))
+         flash_calls=len(flash), flash_routes=op_run["flash_routes"],
+         bad_blocks_raised=len(bad_blocks))
     worst_ops = check_ops(op_run, spmm, flash, refine_args, hier_args)
     del op_run
     op_timing = time_ops(spmm, flash)
@@ -1230,7 +1256,7 @@ def main() -> int:
                        "src/repro/kernels/flash_attention.py:99",
                        op_launches["flash_attention"],
                        worst_ops["flash_attention"],
-                       op_timing[FLASH_TIMED[0]])]
+                       op_timing["a prefill bf16"])]
     seconds = time.perf_counter() - t_start
     info("done", seconds=seconds, ops_seconds=ops_seconds,
          within_600_s=seconds <= 600)

@@ -211,3 +211,95 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = logits.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     return torch.matmul(probs, v.float()).to(q.dtype)
+
+
+def flash_split_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool, split_len: int
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The ``split`` route's first pass, in f32: for each (b, kv head,
+    key split of ``split_len`` keys, the last one ragged) and each of the
+    ``group * S`` query rows reading that kv head, the split's partial
+    ``(m, l, acc)``: the largest visible scaled score, the sum of
+    ``exp(score - m)`` over visible keys and their weighted sum of values.
+    A row that sees no key of the split (causal, the split wholly past
+    its position) gets the neutral partial ``(-1e30, 0, 0)``.
+
+    Returns m, l [B, Hkv, n_splits, R] and acc [B, Hkv, n_splits, R, D].
+    """
+    b, h_kv, s_kv, d = k.shape
+    s = q.shape[2]
+    # the rows that read each kv head, in q's memory order: row r is
+    # head r // S of the group, position r % S
+    rows = q.float().reshape(b, h_kv, -1, d)
+    pos = torch.arange(rows.shape[2], device=q.device) % s
+    ms, ls, accs = [], [], []
+    for k0 in range(0, s_kv, split_len):
+        kt = k[:, :, k0:k0 + split_len].float()
+        vt = v[:, :, k0:k0 + split_len].float()
+        sc = torch.matmul(rows, kt.transpose(-1, -2)) * d ** -0.5
+        keys = torch.arange(k0, k0 + kt.shape[2], device=q.device)
+        seen = (keys[None, :] <= pos[:, None]) if causal else \
+            torch.ones_like(sc[0, 0], dtype=torch.bool)
+        m = sc.masked_fill(~seen, -1e30).amax(-1)
+        p = torch.where(seen, torch.exp(sc - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.matmul(p, vt))
+    return torch.stack(ms, 2), torch.stack(ls, 2), torch.stack(accs, 2)
+
+
+def flash_split_combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                        q_shape, dtype: torch.dtype) -> torch.Tensor:
+    """The ``split`` route's combine pass: each split's partial rescaled
+    to the rows' largest max and summed, divided by the summed weights,
+    rounded once to ``dtype``; returns [B, H, S, D] as ``q_shape``."""
+    w = torch.exp(m - m.amax(2, keepdim=True))
+    total = (w * l).sum(2).clamp_min(1e-30)
+    out = (w[..., None] * acc).sum(2) / total[..., None]
+    return out.reshape(q_shape).to(dtype)
+
+
+def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, causal: bool = True,
+                              split_len: int = 256) -> torch.Tensor:
+    """Attention as the ``split`` route decomposes it (split-K over the
+    keys, the GQA group folded into each kv head's rows, then a combine):
+    :func:`flash_split_partials` then :func:`flash_split_combine`."""
+    m, l, acc = flash_split_partials(q, k, v, causal, split_len)
+    return flash_split_combine(m, l, acc, q.shape, q.dtype)
+
+
+def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           causal: bool = True, tile: int = 64
+                           ) -> torch.Tensor:
+    """Attention with the ``tc`` route's numerics: keys in tiles of
+    ``tile``, scores from the inputs summed in f32, an online softmax in
+    f32 (the row sum taken over the f32 weights), the weights rounded to
+    bf16 before they multiply V (the tensor cores' A operand), the sum in
+    f32 and the output rounded once to q's dtype. Key tiles wholly past
+    the causal diagonal are skipped, as the kernel skips them."""
+    b, h, s, d = q.shape
+    group = h // k.shape[1]
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    qf = q.float()
+    s_kv = k.shape[2]
+    m = torch.full((b, h, s), float("-inf"), device=q.device)
+    l = torch.zeros((b, h, s), device=q.device)
+    acc = torch.zeros((b, h, s, d), device=q.device)
+    pos = torch.arange(s, device=q.device)
+    n_keys = min(s_kv, s) if causal else s_kv
+    for k0 in range(0, n_keys, tile):
+        sc = torch.matmul(qf, kf[:, :, k0:k0 + tile].transpose(-1, -2)) \
+            * d ** -0.5
+        if causal:
+            keys = torch.arange(k0, k0 + sc.shape[-1], device=q.device)
+            sc = sc.masked_fill(keys[None, :] > pos[:, None], float("-inf"))
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.matmul(
+            p.to(torch.bfloat16).float(), vf[:, :, k0:k0 + tile])
+        m = m_new
+    return (acc / l[..., None]).to(q.dtype)

@@ -170,6 +170,36 @@ def _flash_inputs(b, h, hkv, s, skv, d, seed, dtype):
             for shape in ((b, h, s, d), (b, hkv, skv, d), (b, hkv, skv, d))]
 
 
+def _flash_close(got, want, dtype):
+    """f32 within 2e-4; bf16 within rtol 2e-2 plus two bf16 units
+    (2**-8) of each row's largest output."""
+    assert got.dtype == dtype
+    got, want = got.float(), want.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        atol = 2 * 2.0 ** -8 * want.abs().amax(-1, keepdim=True)
+        assert bool(((got - want).abs() <= atol + 2e-2 * want.abs()).all())
+
+
+def _flash_route_run(q, k, v, causal, route):
+    """One call, which must launch once on ``route``; returns its
+    output."""
+    before = dict(flash_attention.FLASH_ROUTES)
+    launches = flash_attention.FLASH_LAUNCHES
+    got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          block_q=q.shape[2],
+                                          block_k=k.shape[2])
+    torch.cuda.synchronize()
+    assert flash_attention.FLASH_LAUNCHES == launches + 1
+    before[route] += 1
+    assert flash_attention.FLASH_ROUTES == before
+    return got
+
+
+# Routes on the card (tests/test_torch_flash_routes.py pins them): the
+# first and fourth case take ``split`` in both dtypes; the second, third
+# and fifth ``tc`` in bf16 and ``fma`` in f32; D 129 ``fma`` in both.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,hkv,s,skv,d,causal", [
     (1, 2, 2, 48, 48, 16, True),      # S not a multiple of the row tile
@@ -182,19 +212,43 @@ def test_cuda_flash_kernel_matches_plain(cuda_device, b, h, hkv, s, skv, d,
                                          causal, dtype):
     q, k, v = (t.to(cuda_device) for t in _flash_inputs(
         b, h, hkv, s, skv, d, s + d, dtype))
-    before = flash_attention.FLASH_LAUNCHES
-    got = flash_attention.flash_attention(q, k, v, causal=causal,
-                                          block_q=s, block_k=skv)
-    torch.cuda.synchronize()
-    assert flash_attention.FLASH_LAUNCHES == before + 1
-    want = flash_attention_ref(q, k, v, causal=causal)
-    assert got.dtype == dtype
-    got, want = got.float(), want.float()
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
-    else:   # two bf16 units (2**-8) of each row's largest output as atol
-        atol = 2 * 2.0 ** -8 * want.abs().amax(-1, keepdim=True)
-        assert bool(((got - want).abs() <= atol + 2e-2 * want.abs()).all())
+    route = flash_attention.plan(q.shape, k.shape, dtype).route
+    got = _flash_route_run(q, k, v, causal, route)
+    _flash_close(got, flash_attention_ref(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("skv", [300, 32768])
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("s", [1, 8])
+def test_cuda_flash_split_route(cuda_device, s, group, skv, causal, dtype):
+    """Decode-shaped calls: split-K with the GQA group folded in, at up
+    to 64 rows per kv head (S 8, group 8), one split (Skv 300 at B 2,
+    Hkv 2 takes two) or many (Skv 32768)."""
+    q, k, v = (t.to(cuda_device) for t in _flash_inputs(
+        2, 2 * group, 2, s, skv, 128, s * group + skv, dtype))
+    got = _flash_route_run(q, k, v, causal, "split")
+    _flash_close(got, flash_attention_ref(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,skv,d,causal", [
+    (1, 4, 2, 200, 200, 64, True),       # ragged S and Skv tiles
+    (1, 4, 2, 130, 333, 128, True),      # causal S < Skv, ragged
+    (1, 2, 1, 300, 70, 256, True),       # causal S > Skv
+    (2, 2, 2, 257, 129, 128, False),     # ragged, non-causal
+    (1, 8, 8, 512, 512, 256, False),
+    (1, 2, 2, 96, 96, 80, True),         # D 80, padded to 128 columns
+    (1, 16, 8, 1024, 1024, 128, True),   # Qwen3-0.6B heads
+    (1, 4, 4, 128, 64, 16, False)])      # D 16
+def test_cuda_flash_tc_route(cuda_device, b, h, hkv, s, skv, d, causal):
+    """bf16 prefill on the tensor cores (wgmma), against the plain
+    version under the bf16 rule."""
+    q, k, v = (t.to(cuda_device) for t in _flash_inputs(
+        b, h, hkv, s, skv, d, s + skv + d, torch.bfloat16))
+    got = _flash_route_run(q, k, v, causal, "tc")
+    _flash_close(got, flash_attention_ref(q, k, v, causal=causal),
+                 torch.bfloat16)
 
 
 def test_cuda_flash_kernel_rejects_bad_inputs(cuda_device):
