@@ -44,7 +44,10 @@ Drives the port (``src/repro_torch``), never the JAX package:
    nodes, 10556 directed edges) times [2720, 1433], (c) the scale
    graph's 536,870,912-byte dense bitmap times [65536, 128], and (d)
    edge cases (N 1, M 32, D 1, D 129, density 0.3, words with bit 31
-   set); ``flash_attention_op`` at Qwen3-0.6B's attention geometry (H 16,
+   set, rows of 2101 words with ~2000 set bits at D 64 and 300); SpMM's
+   launches are also counted by route (``SPMM_ROUTES``): ``split``,
+   ``stream`` and ``wide`` must each launch; ``flash_attention_op`` at Qwen3-0.6B's
+   attention geometry (H 16,
    Hkv 8, D 128) on (a) a causal 4096-token prefill in bf16 and f32, (b)
    a 32768-token non-causal decode step of batch 4 in bf16 and f32, and (c)
    edge cases (D 16, 64, 256; group 1 and 8; causal with S < Skv, the
@@ -61,8 +64,10 @@ Drives the port (``src/repro_torch``), never the JAX package:
 10. times SpMM (a)-(c) and attention (a)-(b): the kernel, its plain
     version, the bound, and the library call computing the same
     function (``torch.sparse.mm`` on the CSR, ``scaled_dot_product_
-    attention``); each attention case must take its route (decode
-    ``split``, bf16 prefill ``tc``, f32 prefill ``fma``).
+    attention``), and for SpMM the bytes its gathers move through L2
+    (nnz * D * element size); each case must take its route (SpMM
+    human-like ``split``, Cora-shaped ``wide``, scale ``stream``; attention
+    decode ``split``, bf16 prefill ``tc``, f32 prefill ``fma``).
 
 Prints one ``[phase]`` info line per step (the ``done`` line gives the
 script's own seconds), then the kernel table as one JSON line, the
@@ -781,8 +786,9 @@ def profile_window(dev, wl, name: str, steps: int = 10) -> dict:
 # ----------------------------------------------------------------------
 QWEN3_ATTN = {"h": 16, "h_kv": 8, "d": 128}   # configs/qwen3_0_6b.py
 BF16_ATOL_UNITS = 2     # bf16 attention atol, in bf16 units of a row's max
-SPMM_TIMED = ("a human f32", "a human bf16", "b cora f32", "b cora bf16",
-              "c scale f32", "c scale bf16")
+SPMM_TIMED = {"a human f32": "split", "a human bf16": "split",
+              "b cora f32": "wide", "b cora bf16": "wide",
+              "c scale f32": "stream", "c scale bf16": "stream"}
 FLASH_TIMED = {"a prefill bf16": "tc", "a prefill f32": "fma",
                "b decode bf16": "split", "b decode f32": "split"}
 
@@ -802,15 +808,22 @@ def op_cases(dev, wl) -> tuple[dict, dict, list]:
     attention ``{name: (q, k, v, causal)}`` and attention calls whose
     blocks do not divide S or Skv (each must raise). Features and
     activations are drawn on the card from a seeded generator."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    return (spmm_cases(dev, wl, randn), *flash_cases(randn))
+
+
+def spmm_cases(dev, wl, randn) -> dict:
+    """SpMM ``{name: (words, x)}``: (a)-(c) in f32 and bf16 and the edge
+    cases (d), x drawn by ``randn(*shape, dtype=...)``."""
     import numpy as np
     import torch
     from repro_torch.data.graph_gen import er_labeled_graph
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
     f32, bf16 = torch.float32, torch.bfloat16
-
-    def randn(*shape, dtype=f32):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     def words_of(a):
         return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)
@@ -833,7 +846,21 @@ def op_cases(dev, wl) -> tuple[dict, dict, list]:
     spmm["d D129 bf16"] = (human, randn(human.shape[1] * 32, 129, dtype=bf16))
     spmm["d density 0.3 bit31"] = (words_of(random_words(rng, 300, 10, 0.3)),
                                    randn(320, 64))
+    # rows of 2101 words (unaligned, five passes of the stream route) with
+    # ~2000 set bits (several windows of its list), then the same on wide;
+    # x from numpy, so that the generator's later draws stay as they were
+    long_rows = words_of(random_words(rng, 40, 2101, 0.03))
+    for d in (64, 300):
+        spmm[f"d W2101 D{d}"] = (long_rows, torch.from_numpy(
+            rng.standard_normal((32 * 2101, d)).astype(np.float32)).to(dev))
+    return spmm
 
+
+def flash_cases(randn) -> tuple[dict, list]:
+    """Attention ``{name: (q, k, v, causal)}`` and the calls whose blocks
+    do not divide S or Skv."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
     h, h_kv, d = QWEN3_ATTN["h"], QWEN3_ATTN["h_kv"], QWEN3_ATTN["d"]
 
     def qkv(b, hq, hk, s, skv, dd, dtype):
@@ -862,7 +889,7 @@ def op_cases(dev, wl) -> tuple[dict, dict, list]:
                                     True)
     odd = qkv(1, 2, 2, 96, 96, 64, f32)
     bad_blocks = [(odd, {"block_q": 64}), (odd, {"block_k": 64})]
-    return spmm, flash, bad_blocks
+    return flash, bad_blocks
 
 
 def drive_ops(spmm, flash, bad_blocks, refine_args, hier_args) -> dict:
@@ -874,6 +901,7 @@ def drive_ops(spmm, flash, bad_blocks, refine_args, hier_args) -> dict:
                                      flash_attention, ops)
     bitmap_refine.LAUNCHES = bitmap_refine.HIER_LAUNCHES = 0
     bitmap_spmm.SPMM_LAUNCHES = flash_attention.FLASH_LAUNCHES = 0
+    bitmap_spmm.SPMM_ROUTES.update(split=0, stream=0, wide=0)
     flash_attention.FLASH_ROUTES.update(split=0, tc=0, fma=0)
     out = {"spmm": {k: ops.bitmap_spmm_op(*a) for k, a in spmm.items()},
            "flash": {k: ops.flash_attention_op(q, k_, v, causal=c)
@@ -894,12 +922,17 @@ def drive_ops(spmm, flash, bad_blocks, refine_args, hier_args) -> dict:
                        "refine_bitmap_rows": bitmap_refine.LAUNCHES,
                        "refine_bitmap_rows_hier": bitmap_refine.HIER_LAUNCHES}
     out["flash_routes"] = dict(flash_attention.FLASH_ROUTES)
+    out["spmm_routes"] = dict(bitmap_spmm.SPMM_ROUTES)
     require(raised == len(bad_blocks), "flash_attention_op took blocks that "
             "do not divide S or Skv")
     require(out["launches"] == {
         "bitmap_spmm": len(spmm), "flash_attention": len(flash),
         "refine_bitmap_rows": 2, "refine_bitmap_rows_hier": 1},
         f"op-layer launches {out['launches']}: not one per op call")
+    require(all(n > 0 for n in out["spmm_routes"].values())
+            and sum(out["spmm_routes"].values()) == len(spmm),
+            f"SpMM routes {out['spmm_routes']}: each route must launch, "
+            "once per op call in all")
     require(all(out["flash_routes"][r] > 0 for r in ("split", "tc", "fma"))
             and sum(out["flash_routes"].values()) == len(flash),
             f"attention routes {out['flash_routes']}: each route must "
@@ -1055,20 +1088,30 @@ def time_ops(spmm, flash) -> dict:
     ``enable_gqa``, whose ``is_causal`` is top-left aligned too)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.bitmap_spmm import bitmap_spmm
+    from repro_torch.kernels.bitmap_spmm import (SPMM_ROUTES, bitmap_spmm,
+                                                 plan)
     from repro_torch.kernels.flash_attention import (FLASH_ROUTES,
                                                      flash_attention)
     from repro_torch.kernels.ref import bitmap_spmm_ref, flash_attention_ref
     out = {}
-    for name in SPMM_TIMED:
+    for name, route in SPMM_TIMED.items():
         words, x = spmm[name]
         csr = spmm_csr(words, x.dtype)
         t_bytes, t_ops, counts = spmm_bound(words, x, csr)
+        before = dict(SPMM_ROUTES)
+        ms = device_ms(bitmap_spmm, [(words, x)])
+        taken = {r: n - before[r] for r, n in SPMM_ROUTES.items()
+                 if n != before[r]}
+        require(list(taken) == [route], f"SpMM {name} took routes {taken}, "
+                f"expected {route!r}")
+        p = plan(words.shape, x.shape, x.dtype)
         out[name] = timing_row(
-            device_ms(bitmap_spmm, [(words, x)]),
-            device_ms(bitmap_spmm_ref, [(words, x)]),
+            ms, device_ms(bitmap_spmm_ref, [(words, x)]),
             library_ms(torch.sparse.mm, (csr, x)), t_bytes, t_ops,
-            eager_ms=eager_ms(bitmap_spmm, [(words, x)]), **counts)
+            eager_ms=eager_ms(bitmap_spmm, [(words, x)]), route=route,
+            groups=p.groups, units=p.units,
+            gathered_bytes=counts["nnz"] * x.shape[1] * x.element_size(),
+            **counts)
         info("spmm-time", case=name, **out[name])
         del csr
         torch.cuda.empty_cache()
@@ -1146,16 +1189,22 @@ def finish_plain_run(proc: subprocess.Popen, out_path: str) -> dict:
         return pickle.load(f)
 
 
-def kernel_row(name, source, replaces, launches, worst, timing) -> dict:
+TIMING_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+
+def kernel_row(name, source, replaces, launches, worst, timing,
+               cases=None) -> dict:
     """One row of the kernel table: ``launches`` from the main path's
     run, the times and bound from ``timing`` (one case's), the error the
-    worst of the checks."""
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max(worst, timing.get("max_abs_err", 0)),
-            "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-            "library_ms": timing.get("library_ms")}
+    worst of the checks; ``cases`` adds every timed case's numbers."""
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches,
+           "max_abs_err": max(worst, timing.get("max_abs_err", 0)),
+           **{k: timing.get(k) for k in TIMING_KEYS}}
+    if cases:
+        row["cases"] = {c: {k: t.get(k) for k in TIMING_KEYS + (
+            "route", "gathered_bytes")} for c, t in cases.items()}
+    return row
 
 
 def main() -> int:
@@ -1232,6 +1281,7 @@ def main() -> int:
     op_run = drive_ops(spmm, flash, bad_blocks, refine_args, hier_args)
     op_launches = op_run["launches"]
     info("ops-run", launches=op_launches, spmm_calls=len(spmm),
+         spmm_routes=op_run["spmm_routes"],
          flash_calls=len(flash), flash_routes=op_run["flash_routes"],
          bad_blocks_raised=len(bad_blocks))
     worst_ops = check_ops(op_run, spmm, flash, refine_args, hier_args)
@@ -1250,7 +1300,8 @@ def main() -> int:
                        "src/repro_torch/kernels/csrc/bitmap_spmm.cu",
                        "src/repro/kernels/bitmap_spmm.py:68",
                        op_launches["bitmap_spmm"], worst_ops["bitmap_spmm"],
-                       op_timing[SPMM_TIMED[0]]),
+                       op_timing["a human f32"],
+                       {c: op_timing[c] for c in SPMM_TIMED}),
             kernel_row("flash_attention",
                        "src/repro_torch/kernels/csrc/flash_attention.cu",
                        "src/repro/kernels/flash_attention.py:99",

@@ -1,15 +1,30 @@
-"""Packed-bitmap SpMM: wrapper and launch count.
+"""Packed-bitmap SpMM: wrapper, route plan and launch counts.
 
 :func:`bitmap_spmm` is the port of the reference's Pallas kernel of the
 same name (``repro/kernels/bitmap_spmm.py``): ``A @ x`` for a 0/1 matrix
-given as packed words. For a CUDA tensor it launches the hand-written
-kernel ``csrc/bitmap_spmm.cu`` (built and loaded by ``build.py``); for a
-CPU tensor it runs the plain ``ref.bitmap_spmm_ref``. A CUDA call either
-launches or raises.
+given as packed words. For a CPU tensor it runs the plain
+``ref.bitmap_spmm_ref``. For a CUDA tensor it launches one of two
+hand-written kernels of ``csrc/bitmap_spmm.cu`` (built and loaded by
+``build.py``), picked by :func:`plan` from the shape alone:
+
+* ``split`` — D up to 128 (one warp holds a row's columns): each row's
+  set-bit list is cut into one slice per warp of its block, so a hub
+  row's x loads run on every warp at once, and the partial sums are
+  combined in warp order;
+* ``stream`` — D up to 128 on rows of more than ``LONG_ROW_WORDS``
+  words, where reading the row takes the time: a warp per row streams it
+  through a ring of ``cp.async`` copies in shared memory, several passes
+  in flight;
+* ``wide`` — wider D: a block of 128 threads per 512-column tile walks
+  the row's set bits, each thread on 4 of the tile's columns.
+
+A CUDA call either launches its route's kernel or raises; nothing falls
+back to another route or to the plain version.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -17,11 +32,54 @@ from . import build
 from .config import backend_for
 from .ref import bitmap_spmm_ref
 
-SPMM_LAUNCHES = 0       # kernel launches made by bitmap_spmm
+SPMM_LAUNCHES = 0                       # kernel launches made by bitmap_spmm
+SPMM_ROUTES = {"split": 0, "stream": 0, "wide": 0}   # the same, by route
+SPLIT_MAX_COLS = 128    # split and stream: the columns one warp holds
+SPLIT_GROUPS = 4        # warps per row on the split route
+LONG_ROW_WORDS = 1024   # longer rows take the stream route
+MAX_UNITS = 4           # 16-byte word units a lane reads per pass, at most
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-SIGNATURES = {"bitmap_spmm_launch": ([_P] * 3 + [_I] * 4 + [_P], _I)}
+SIGNATURES = {"bitmap_spmm_split_launch": ([_P] * 3 + [_I] * 6 + [_P], _I),
+              "bitmap_spmm_stream_launch": ([_P] * 3 + [_I] * 4 + [_P], _I),
+              "bitmap_spmm_wide_launch": ([_P] * 3 + [_I] * 4 + [_P], _I)}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@dataclass(frozen=True)
+class SpmmPlan:
+    """A CUDA call's route; for ``split`` also the warps that slice each
+    row's list (``groups``) and the 16-byte units of words each lane reads
+    per pass over the row (``units``). ``stream`` and ``wide`` sum each
+    row in one sequence (``groups`` 1)."""
+    route: str
+    groups: int = 1
+    units: int = 1
+
+    @property
+    def pass_words(self) -> int:
+        """Words a ``split`` block reads per pass over a row."""
+        return 128 * self.units * self.groups
+
+
+def plan(words_shape, x_shape, dtype: torch.dtype) -> SpmmPlan:
+    """The route of a CUDA call on words ``[N, W]`` and x ``[32 W, D]``
+    in ``dtype``: for ``D <= SPLIT_MAX_COLS``, ``stream`` on rows of more
+    than ``LONG_ROW_WORDS`` words (a row of the 65536-vertex graph is
+    2048 words with ~6 set bits: reading it takes the time) and ``split``
+    on shorter ones, with ``SPLIT_GROUPS`` warps a row and as few 16-byte
+    units a lane per pass as cover the row; ``wide`` for wider D. Raises
+    for a dtype the kernels do not take.
+    """
+    if dtype not in DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {dtype}")
+    w, d = words_shape[1], x_shape[1]
+    if d > SPLIT_MAX_COLS:
+        return SpmmPlan("wide")
+    if w > LONG_ROW_WORDS:
+        return SpmmPlan("stream")
+    units = max(1, min(MAX_UNITS, -(-w // (128 * SPLIT_GROUPS))))
+    return SpmmPlan("split", SPLIT_GROUPS, units)
 
 
 def _library() -> ctypes.CDLL:
@@ -53,6 +111,13 @@ def bitmap_spmm(adj_words: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"x has {m} rows, not 32 W = {32 * w}")
     if backend_for(x, backend) == "torch":
         return bitmap_spmm_ref(adj_words, x)
+    return launch(adj_words, x, plan(adj_words.shape, x.shape, x.dtype))
+
+
+def launch(adj_words: torch.Tensor, x: torch.Tensor, p: SpmmPlan
+           ) -> torch.Tensor:
+    """One launch of the CUDA kernel in layout ``p`` on card tensors
+    (:func:`bitmap_spmm` passes :func:`plan`'s); counts it."""
     global SPMM_LAUNCHES
     dev = x.device
     for name, t in (("adj_words", adj_words), ("x", x)):
@@ -64,14 +129,26 @@ def bitmap_spmm(adj_words: torch.Tensor, x: torch.Tensor,
         raise TypeError(f"adj_words must be int32, got {adj_words.dtype}")
     if x.dtype not in DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    n, w = adj_words.shape
+    d = x.shape[1]
     out = torch.empty((n, d), dtype=x.dtype, device=dev)
     if n == 0 or d == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _library().bitmap_spmm_launch(
-        adj_words.data_ptr(), x.data_ptr(), out.data_ptr(), n, w, d,
-        DTYPES[x.dtype], stream)
+    ptrs = (adj_words.data_ptr(), x.data_ptr(), out.data_ptr())
+    lib = _library()
+    if p.route == "split":
+        err = lib.bitmap_spmm_split_launch(
+            *ptrs, n, w, d, DTYPES[x.dtype], p.groups, p.units, stream)
+    elif p.route == "stream":
+        err = lib.bitmap_spmm_stream_launch(*ptrs, n, w, d, DTYPES[x.dtype],
+                                            stream)
+    else:
+        err = lib.bitmap_spmm_wide_launch(*ptrs, n, w, d, DTYPES[x.dtype],
+                                          stream)
     if err != 0:
-        raise RuntimeError(f"bitmap_spmm launch failed: CUDA error {err}")
+        raise RuntimeError(f"bitmap_spmm {p.route} launch failed: CUDA "
+                           f"error {err}")
     SPMM_LAUNCHES += 1
+    SPMM_ROUTES[p.route] += 1
     return out

@@ -186,6 +186,110 @@ def bitmap_spmm_ref(adj_words: torch.Tensor, x: torch.Tensor
     return out
 
 
+def _two_sum(s: torch.Tensor, err: torch.Tensor, v: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Knuth's TwoSum in f32, as the kernel writes it: ``s + v`` and
+    ``err`` plus that sum's rounding error."""
+    t = s + v
+    vp = t - s
+    return t, err + ((s - (t - vp)) + (v - vp))
+
+
+def spmm_split_schedule(adj_words: torch.Tensor, groups: int = 4,
+                        pass_words: int = 2048, window: int = 1024
+                        ) -> torch.Tensor:
+    """The CUDA kernel's order of x rows: int64 [N, groups, depth],
+    entry ``[i, g, t]`` the column whose x row group g of row i's block
+    adds at its step t, ``32 W`` (no row) past the end of its sequence.
+
+    Each row's set columns, ascending, are cut into segments: the row is
+    read ``pass_words`` words at a time, and each pass's bits go through
+    a list of ``window`` entries. Each segment of n entries is cut into
+    ``groups`` slices of ``ceil(n / groups)``; slice g of every segment,
+    in order, is group g's sequence. With ``groups=1`` the sequence is
+    the row's set columns in order, whatever the passes and windows.
+    """
+    n, w = adj_words.shape
+    dev = adj_words.device
+    rows = [torch.zeros(0, dtype=torch.int64, device=dev)]
+    cols = [torch.zeros(0, dtype=torch.int64, device=dev)]
+    for i in range(0, n, SPMM_ROW_BLOCK):
+        r, c = unpack_rows(adj_words, i, min(i + SPMM_ROW_BLOCK, n)
+                           ).nonzero(as_tuple=True)
+        rows.append(r + i)
+        cols.append(c)
+    rows, cols = torch.cat(rows), torch.cat(cols)       # row-major, ascending
+    nnz = rows.numel()
+    # rank of each bit in its (row, pass), then its segment (row, pass,
+    # window) and its place there
+    n_pass = max(1, -(-w // pass_words))
+    key = rows * n_pass + (cols // 32) // pass_words
+    _, cnt = torch.unique_consecutive(key, return_counts=True)
+    rank = torch.arange(nnz, device=dev) - torch.repeat_interleave(
+        torch.cumsum(cnt, 0) - cnt, cnt)
+    seg_key = key * (-(-32 * pass_words // window)) + rank // window
+    _, seg_len = torch.unique_consecutive(seg_key, return_counts=True)
+    seg = torch.repeat_interleave(torch.arange(seg_len.numel(), device=dev),
+                                  seg_len)
+    pos = rank % window
+    span = -(-seg_len // groups)                        # slice length
+    grp = pos // span[seg]
+    # entries each group takes from each segment, counted from the row's
+    # first segment: the offset of this segment's slice in the sequence
+    g_ids = torch.arange(groups, device=dev)
+    took = (seg_len[:, None] - g_ids * span[:, None]).clamp(0) \
+        .minimum(span[:, None])                         # [segments, groups]
+    before = torch.cumsum(took, 0) - took
+    seg_row = rows[torch.cumsum(seg_len, 0) - seg_len]
+    _, segs_per_row = torch.unique_consecutive(seg_row, return_counts=True)
+    row_first = torch.repeat_interleave(
+        torch.cumsum(segs_per_row, 0) - segs_per_row, segs_per_row)
+    before = before - before[row_first]
+    step = before[seg, grp] + pos - grp * span[seg]
+    depth = int(step.max()) + 1 if nnz else 0
+    idx = torch.full((n, groups, depth), 32 * w, dtype=torch.int64,
+                     device=dev)
+    idx[rows, grp, step] = cols
+    return idx
+
+
+def bitmap_spmm_split_ref(adj_words: torch.Tensor, x: torch.Tensor,
+                          groups: int = 4, pass_words: int = 2048,
+                          window: int = 1024, batch: int = 4
+                          ) -> torch.Tensor:
+    """``A @ x`` as the CUDA kernel decomposes it, all in f32: the
+    kernel's ``split`` route with its defaults; ``groups=1`` is the
+    ``stream`` and ``wide`` routes (one ascending sequence a row).
+
+    Group g of each row walks its sequence of :func:`spmm_split_schedule`
+    ``batch`` x rows at a time (the loads of a batch are issued together,
+    the adds made in order) into a TwoSum pair ``(s, err)``. Group 0's
+    pair then takes in groups 1.. in order (TwoSum on the sums, the
+    errors added), and ``s + err`` is rounded once to ``x.dtype``.
+
+    Every operation is the kernel's, in the kernel's order (an x row of
+    zeros past a sequence's end adds nothing), so on the card the two
+    agree bit for bit. ``bitmap_spmm_ref`` (f64) stays the plain version
+    the kernel is held to.
+    """
+    n = adj_words.shape[0]
+    d = x.shape[1]
+    dev = x.device
+    idx = spmm_split_schedule(adj_words, groups, pass_words, window)
+    xz = torch.cat([x.float(), torch.zeros((1, d), device=dev)])  # row 32 W
+    s = torch.zeros((n, groups, d), device=dev)
+    err = torch.zeros_like(s)
+    for k in range(0, idx.shape[2], batch):
+        vals = xz[idx[:, :, k:k + batch]]               # one batch of loads
+        for u in range(vals.shape[2]):
+            s, err = _two_sum(s, err, vals[:, :, u])
+    total, total_err = s[:, 0], err[:, 0]
+    for g in range(1, groups):
+        total, total_err = _two_sum(total, total_err, s[:, g])
+        total_err = total_err + err[:, g]
+    return (total + total_err).to(x.dtype)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True) -> torch.Tensor:
     """Plain softmax attention in f32, [B, H, S, D] queries against

@@ -12,7 +12,9 @@ in another order than their plain versions: f32 within rtol / atol 1e-5
 (SpMM) and 2e-4 (attention), the reference's own tolerances; bf16 SpMM
 within 2e-2, and bf16 attention within rtol 2e-2 with an atol of two
 bf16 units of each output row's largest value (a flat 2e-2 would exceed
-the outputs of a long softmax).
+the outputs of a long softmax). The SpMM kernel also equals, bit for
+bit, ``ref.bitmap_spmm_split_ref`` run on the card: the CPU emulation of
+its decomposition, in the same f32 operations and order.
 """
 import numpy as np
 import pytest
@@ -22,7 +24,9 @@ from repro_torch.core.graph import build_hier_bitmap
 from repro_torch.core.graph import pack_bitmap
 from repro_torch.kernels import (bitmap_refine, bitmap_spmm, flash_attention,
                                  ops)
-from repro_torch.kernels.ref import (bitmap_spmm_ref, flash_attention_ref,
+from repro_torch.kernels.ref import (bitmap_spmm_ref,
+                                     bitmap_spmm_split_ref,
+                                     flash_attention_ref,
                                      refine_bitmap_rows_hier_ref,
                                      refine_bitmap_rows_ref)
 
@@ -132,10 +136,18 @@ def _spmm_inputs(n, w, d, density, seed, dtype):
     return words, x.to(dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,w,d,density", [
+# n, w, d, density: small and human-like shapes, then a hub of ~700 set
+# bits (the scale graph's largest degree), rows of 2048 words (the scale
+# width) with ~6 set bits (every third row also has bit 31 of each word:
+# 2048 more, several list windows) and the Cora width
+SPMM_CASES = [
     (1, 1, 1, 0.3), (33, 3, 129, 0.3), (200, 5, 16, 0.01),
-    (97, 2, 600, 0.2), (130, 147, 128, 0.008)])
+    (97, 2, 600, 0.2), (130, 147, 128, 0.008),
+    (4, 32, 128, 0.68), (8, 2048, 128, 6 / 65536), (64, 85, 1433, 0.0015)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,w,d,density", SPMM_CASES)
 def test_cuda_spmm_kernel_matches_plain(cuda_device, n, w, d, density,
                                         dtype):
     words, x = (t.to(cuda_device) for t in _spmm_inputs(
@@ -148,6 +160,73 @@ def test_cuda_spmm_kernel_matches_plain(cuda_device, n, w, d, density,
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), bitmap_spmm_ref(words, x).float(),
                                rtol=tol, atol=tol if tol > 1e-5 else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,w,d,density", [
+    (4, 32, 128, 0.68),          # split, 4 warps: a hub row, slices of 174
+    (8, 2048, 128, 6 / 65536),   # stream: 8 windows on the bit-31 rows
+    (5, 2101, 64, 0.03),         # stream: five passes, unaligned rows
+    (6, 7, 3, 0.5),              # split: slices that do not divide
+    (64, 85, 1433, 0.0015),      # wide: three column tiles
+    (40, 3, 129, 0.3)])          # wide: one tile, 129 of its 512 columns
+def test_cuda_spmm_kernel_equals_its_emulation(cuda_device, n, w, d,
+                                               density, dtype):
+    """The kernel and ``bitmap_spmm_split_ref`` (its decomposition, in
+    f32, on the same card) agree bit for bit on either route."""
+    words, x = (t.to(cuda_device) for t in _spmm_inputs(
+        n, w, d, density, n + w, dtype))
+    p = bitmap_spmm.plan(words.shape, x.shape, dtype)
+    got = bitmap_spmm.bitmap_spmm(words, x)
+    want = bitmap_spmm_split_ref(words, x, groups=p.groups,
+                                 pass_words=p.pass_words)
+    assert torch.equal(got, want)
+
+
+def test_cuda_spmm_kernel_is_deterministic(cuda_device):
+    """Repeated calls give the same bits: no atomics, no order that
+    depends on timing (hub rows of ~700 bits split over four warps)."""
+    words, x = (t.to(cuda_device) for t in _spmm_inputs(
+        300, 24, 128, 0.3, 3, torch.float32))
+    first = bitmap_spmm.bitmap_spmm(words, x)
+    for _ in range(3):
+        assert torch.equal(bitmap_spmm.bitmap_spmm(words, x), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_spmm_unaligned_views_change_no_bit(cuda_device, dtype):
+    """Words and x that are not 16-byte aligned take scalar loads; the
+    result is the aligned one, bit for bit."""
+    words, x = (t.to(cuda_device) for t in _spmm_inputs(
+        9, 2048, 64, 0.001, 4, dtype))
+    want = bitmap_spmm.bitmap_spmm(words[1:].contiguous(), x)
+    wbuf = torch.empty(words.numel() + 1, dtype=torch.int32,
+                       device=cuda_device)
+    wbuf[1:] = words.reshape(-1)
+    xbuf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda_device)
+    xbuf[1:] = x.reshape(-1)
+    w_odd = wbuf[1:].view(words.shape)[1:]
+    x_odd = xbuf[1:].view(x.shape)
+    assert w_odd.data_ptr() % 16 and x_odd.data_ptr() % 8
+    assert torch.equal(bitmap_spmm.bitmap_spmm(w_odd, x_odd), want)
+
+
+def test_cuda_spmm_routes_are_counted(cuda_device):
+    """Each route launches and is counted once per call, with one launch
+    in ``SPMM_LAUNCHES``: D 128 takes ``split`` on short rows and
+    ``stream`` on long ones, D 129 ``wide``."""
+    launches = bitmap_spmm.SPMM_LAUNCHES
+    for w, d, route in ((4, 128, "split"), (4, 129, "wide"),
+                        (4, 1433, "wide"), (4, 1, "split"),
+                        (1025, 128, "stream"), (2048, 3, "stream")):
+        words, x = (t.to(cuda_device) for t in _spmm_inputs(
+            20, w, d, 0.2 if w < 100 else 0.001, d, torch.float32))
+        before = dict(bitmap_spmm.SPMM_ROUTES)
+        bitmap_spmm.bitmap_spmm(words, x)
+        taken = {r: c - before[r] for r, c in bitmap_spmm.SPMM_ROUTES.items()
+                 if c != before[r]}
+        assert taken == {route: 1}
+    assert bitmap_spmm.SPMM_LAUNCHES == launches + 6
 
 
 def test_cuda_spmm_kernel_rejects_bad_inputs(cuda_device):
