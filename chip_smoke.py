@@ -1088,8 +1088,7 @@ def time_ops(spmm, flash) -> dict:
     ``enable_gqa``, whose ``is_causal`` is top-left aligned too)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.bitmap_spmm import (SPMM_ROUTES, bitmap_spmm,
-                                                 plan)
+    from repro_torch.kernels.bitmap_spmm import SPMM_ROUTES, bitmap_spmm
     from repro_torch.kernels.flash_attention import (FLASH_ROUTES,
                                                      flash_attention)
     from repro_torch.kernels.ref import bitmap_spmm_ref, flash_attention_ref
@@ -1104,12 +1103,10 @@ def time_ops(spmm, flash) -> dict:
                  if n != before[r]}
         require(list(taken) == [route], f"SpMM {name} took routes {taken}, "
                 f"expected {route!r}")
-        p = plan(words.shape, x.shape, x.dtype)
         out[name] = timing_row(
             ms, device_ms(bitmap_spmm_ref, [(words, x)]),
             library_ms(torch.sparse.mm, (csr, x)), t_bytes, t_ops,
             eager_ms=eager_ms(bitmap_spmm, [(words, x)]), route=route,
-            groups=p.groups, units=p.units,
             gathered_bytes=counts["nnz"] * x.shape[1] * x.element_size(),
             **counts)
         info("spmm-time", case=name, **out[name])

@@ -1,18 +1,30 @@
 #!/usr/bin/env python3
-"""The SpMM kernel's layouts on the op layer's timed cases, on one GPU.
+"""The SpMM kernel's routes, on the op layer's cases and across row
+widths, on one GPU.
 
     python3 scripts/spmm_sweep.py
 
-For each of ``chip_smoke.py``'s SpMM cases (a) human-like, (b)
-Cora-shaped and (c) scale, in f32 and bf16: the kernel in the layout
-``bitmap_spmm.plan`` picks is held against the plain version (rtol /
-atol 1e-5 in f32, 2e-2 in bf16) and, bit for bit, against
-``ref.bitmap_spmm_split_ref`` (the CPU emulation of its decomposition,
-run on the card); then every candidate layout is timed (CUDA-graph
-replay) beside the bound, the bytes the gathers move through L2
-(nnz * D * element size) and ``torch.sparse.mm``'s time. Prints the
-card's name and power limit, the kernel's ptxas lines and one JSON line
-per (case, layout). Exits non-zero without a card or on a failed check.
+1. Routes. For each of ``chip_smoke.py``'s SpMM cases (a) human-like,
+   (b) Cora-shaped and (c) scale, in f32 and bf16, every route
+   (``split``, ``stream``, ``wide``) is launched, held against the plain
+   version (rtol / atol 1e-5 in f32, 2e-2 in bf16) and, bit for bit,
+   against ``ref.bitmap_spmm_split_ref`` (the CPU emulation of its
+   decomposition, run on the card), and timed (CUDA-graph replay)
+   beside the bound, the bytes the gathers move through L2
+   (nnz * D * element size) and ``torch.sparse.mm``'s time.
+2. The cut between ``split`` and ``stream`` (``LONG_ROW_WORDS``). At D
+   128, rows of ``WIDTHS`` words from three families: power-law graphs
+   of 32 W vertices with mean degree 6 (``m_attach`` 3, the scale
+   graph's family) and 36 (``m_attach`` 18, the human-like graph's
+   mean degree), and the human-like adjacency padded with zero words
+   (its hub rows, up to 408 set bits, on longer rows; not square);
+   ``split`` and ``stream`` are each held against the plain version and
+   timed beside ``torch.sparse.mm``.
+
+Prints the card's name and power limit, the kernel's ptxas lines and one
+JSON line per (case, route) and per (family, width, type). Exits
+non-zero without a card or on a failed check (``chip_smoke.close_err``
+stops the script at the first output out of tolerance).
 """
 from __future__ import annotations
 
@@ -24,22 +36,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-
-def candidates(p, n_words):
-    """Layouts to time beside ``p``: the split route with 4, 2 and 1 warps
-    per row, each with as few 16-byte units a lane as cover the row and
-    with the most (on long rows too, beside ``stream``); the wide route
-    has one layout."""
-    from repro_torch.kernels.bitmap_spmm import MAX_UNITS, SpmmPlan
-    if p.route == "wide":
-        return [p]
-    out = [p]
-    for g in (4, 2, 1):
-        for u in (max(1, min(MAX_UNITS, -(-n_words // (128 * g)))),
-                  MAX_UNITS):
-            if SpmmPlan("split", g, u) not in out:
-                out.append(SpmmPlan("split", g, u))
-    return out
+WIDTHS = (147, 256, 384, 512, 768, 1024, 1536, 2048)
+ROUTES = ("split", "stream", "wide")
 
 
 def main() -> int:
@@ -59,51 +57,90 @@ def main() -> int:
         "bitmap_spmm"]
     print(json.dumps({"build_s": secs, "ptxas": [
         ln.strip() for ln in log.splitlines()
-        if "registers" in ln or "spill" in ln]}), flush=True)
+        if "entry function" in ln or "registers" in ln or "spill" in ln]}),
+        flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
-    wl = {"human": (human_like_graph(seed=0),),
-          "scale": (powerlaw_graph(65536, 3, 16, seed=0),)}
-    spmm = cs.spmm_cases(dev, wl, randn)
-    for name in cs.SPMM_TIMED:
+
+    def tol_of(x):
+        return 1e-5 if x.dtype == torch.float32 else 2e-2
+
+    human = human_like_graph(seed=0)
+    scale = powerlaw_graph(65536, 3, 16, seed=0)
+    ok = True
+    spmm = cs.spmm_cases(dev, {"human": (human,), "scale": (scale,)}, randn)
+    for name, planned in cs.SPMM_TIMED.items():
         words, x = spmm[name]
-        p = bs.plan(words.shape, x.shape, x.dtype)
-        got = bs.bitmap_spmm(words, x)
-        tol = 1e-5 if x.dtype == torch.float32 else 2e-2
-        err = cs.close_err(got, bitmap_spmm_ref(words, x), tol,
-                           max(tol, 1e-5))
-        emu = bitmap_spmm_split_ref(words, x, groups=p.groups,
-                                    pass_words=p.pass_words)
-        same = bool(torch.equal(got, emu))
-        diff = float((got.float() - emu.float()).abs().max())
-        del emu
-        torch.cuda.empty_cache()
+        tol = tol_of(x)
+        want = bitmap_spmm_ref(words, x)
         csr = cs.spmm_csr(words, x.dtype)
         t_bytes, t_ops, counts = cs.spmm_bound(words, x, csr)
         lib = cs.library_ms(torch.sparse.mm, (csr, x))
         del csr
         gathered = counts["nnz"] * x.shape[1] * x.element_size()
-        for q in candidates(p, words.shape[1]):
-            ms = cs.device_ms(lambda w_, x_, q=q: bs.launch(w_, x_, q),
+        for route in ROUTES:
+            got = bs._launch(words, x, route)
+            err = cs.close_err(got, want, tol, max(tol, 1e-5))
+            emu = bitmap_spmm_split_ref(words, x,
+                                        groups=bs.row_slices(route))
+            same = bool(torch.equal(got, emu))
+            del got, emu
+            torch.cuda.empty_cache()
+            ms = cs.device_ms(lambda w_, x_, r=route: bs._launch(w_, x_, r),
                               [(words, x)])
             print(json.dumps({
-                "case": name, "route": q.route, "groups": q.groups,
-                "units": q.units, "planned": q == p, "ms": ms,
-                "library_ms": lib, "bound_ms": max(t_bytes, t_ops),
+                "case": name, "route": route, "planned": route == planned,
+                "ms": ms, "library_ms": lib, "bound_ms": max(t_bytes, t_ops),
                 "share_of_bound": max(t_bytes, t_ops) / ms,
                 "gathered_bytes": gathered,
                 "gathered_GBps": gathered / ms / 1e6,
-                "max_abs_err": err, "equals_emulation": same,
-                "emulation_max_diff": diff, **counts}), flush=True)
-        if not same:
-            print(f"spmm_sweep: {name} differs from its emulation",
-                  file=sys.stderr)
-            return 1
+                "max_abs_err": err, "equals_emulation": same, **counts}),
+                flush=True)
+            if not same:
+                print(f"spmm_sweep: {name} on {route} differs from its "
+                      "emulation", file=sys.stderr)
+                ok = False
+        del want
         torch.cuda.empty_cache()
-    return 0
+
+    human_words = torch.from_numpy(human.adj_bitmap.view("int32")).to(dev)
+    for w in WIDTHS:
+        pad = torch.zeros((human_words.shape[0], w - human_words.shape[1]),
+                          dtype=torch.int32, device=dev)
+        families = {"human padded": torch.cat([human_words, pad], 1)}
+        for m in (3, 18):
+            graph = scale if (w, m) == (2048, 3) else powerlaw_graph(
+                32 * w, m, 16, seed=0)
+            families[f"power-law m{m}"] = torch.from_numpy(
+                graph.adj_bitmap.view("int32")).to(dev)
+        for family, words in families.items():
+            x32 = randn(32 * w, 128)
+            for x in (x32, x32.to(torch.bfloat16)):
+                tol = tol_of(x)
+                want = bitmap_spmm_ref(words, x)
+                csr = cs.spmm_csr(words, x.dtype)
+                nnz = int(csr.values().numel())
+                row = {"family": family, "words": w, "rows": words.shape[0],
+                       "nnz": nnz, "dtype": str(x.dtype).split(".")[-1],
+                       "planned": bs.plan(words.shape, x.shape, x.dtype),
+                       "library_ms": cs.library_ms(torch.sparse.mm,
+                                                   (csr, x))}
+                del csr
+                for route in ("split", "stream"):
+                    cs.close_err(bs._launch(words, x, route), want, tol,
+                                 max(tol, 1e-5))
+                    row[f"{route}_ms"] = cs.device_ms(
+                        lambda w_, x_, r=route: bs._launch(w_, x_, r),
+                        [(words, x)])
+                row["faster"] = min(("split", "stream"),
+                                    key=lambda r: row[f"{r}_ms"])
+                print(json.dumps(row), flush=True)
+                del want
+                torch.cuda.empty_cache()
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -8,9 +8,9 @@ hand-written kernels of ``csrc/bitmap_spmm.cu`` (built and loaded by
 ``build.py``), picked by :func:`plan` from the shape alone:
 
 * ``split`` — D up to 128 (one warp holds a row's columns): each row's
-  set-bit list is cut into one slice per warp of its block, so a hub
-  row's x loads run on every warp at once, and the partial sums are
-  combined in warp order;
+  set-bit list is cut into one slice per warp of its block
+  (``SPLIT_WARPS``, fixed in the kernel), so a hub row's x loads run on
+  every warp at once, and the partial sums are combined in warp order;
 * ``stream`` — D up to 128 on rows of more than ``LONG_ROW_WORDS``
   words, where reading the row takes the time: a warp per row streams it
   through a ring of ``cp.async`` copies in shared memory, several passes
@@ -24,7 +24,6 @@ back to another route or to the plain version.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
 
 import torch
 
@@ -35,51 +34,39 @@ from .ref import bitmap_spmm_ref
 SPMM_LAUNCHES = 0                       # kernel launches made by bitmap_spmm
 SPMM_ROUTES = {"split": 0, "stream": 0, "wide": 0}   # the same, by route
 SPLIT_MAX_COLS = 128    # split and stream: the columns one warp holds
-SPLIT_GROUPS = 4        # warps per row on the split route
-LONG_ROW_WORDS = 1024   # longer rows take the stream route
-MAX_UNITS = 4           # 16-byte word units a lane reads per pass, at most
+SPLIT_WARPS = 4         # split: warps per row, the kernel's kSplitWarps
+LONG_ROW_WORDS = 512    # longer rows take the stream route
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-SIGNATURES = {"bitmap_spmm_split_launch": ([_P] * 3 + [_I] * 6 + [_P], _I),
-              "bitmap_spmm_stream_launch": ([_P] * 3 + [_I] * 4 + [_P], _I),
-              "bitmap_spmm_wide_launch": ([_P] * 3 + [_I] * 4 + [_P], _I)}
+SIGNATURES = {f"bitmap_spmm_{route}_launch": ([_P] * 3 + [_I] * 4 + [_P], _I)
+              for route in SPMM_ROUTES}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-@dataclass(frozen=True)
-class SpmmPlan:
-    """A CUDA call's route; for ``split`` also the warps that slice each
-    row's list (``groups``) and the 16-byte units of words each lane reads
-    per pass over the row (``units``). ``stream`` and ``wide`` sum each
-    row in one sequence (``groups`` 1)."""
-    route: str
-    groups: int = 1
-    units: int = 1
-
-    @property
-    def pass_words(self) -> int:
-        """Words a ``split`` block reads per pass over a row."""
-        return 128 * self.units * self.groups
-
-
-def plan(words_shape, x_shape, dtype: torch.dtype) -> SpmmPlan:
+def plan(words_shape, x_shape, dtype: torch.dtype) -> str:
     """The route of a CUDA call on words ``[N, W]`` and x ``[32 W, D]``
     in ``dtype``: for ``D <= SPLIT_MAX_COLS``, ``stream`` on rows of more
     than ``LONG_ROW_WORDS`` words (a row of the 65536-vertex graph is
     2048 words with ~6 set bits: reading it takes the time) and ``split``
-    on shorter ones, with ``SPLIT_GROUPS`` warps a row and as few 16-byte
-    units a lane per pass as cover the row; ``wide`` for wider D. Raises
-    for a dtype the kernels do not take.
+    on shorter ones; ``wide`` for wider D. Raises for a dtype the kernels
+    do not take.
+
+    The cut is where the two routes crossed on square power-law graphs
+    of mean degree 6 and 36 on an H100 (``scripts/spmm_sweep.py``):
+    ``split`` faster up to 256 and 512 words, ``stream`` from 512 and
+    1024.
     """
     if dtype not in DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {dtype}")
-    w, d = words_shape[1], x_shape[1]
-    if d > SPLIT_MAX_COLS:
-        return SpmmPlan("wide")
-    if w > LONG_ROW_WORDS:
-        return SpmmPlan("stream")
-    units = max(1, min(MAX_UNITS, -(-w // (128 * SPLIT_GROUPS))))
-    return SpmmPlan("split", SPLIT_GROUPS, units)
+    if x_shape[1] > SPLIT_MAX_COLS:
+        return "wide"
+    return "stream" if words_shape[1] > LONG_ROW_WORDS else "split"
+
+
+def row_slices(route: str) -> int:
+    """The slices each row's set-bit list is cut into on ``route``: the
+    ``groups`` of ``ref.bitmap_spmm_split_ref`` that reproduces it."""
+    return SPLIT_WARPS if route == "split" else 1
 
 
 def _library() -> ctypes.CDLL:
@@ -111,13 +98,14 @@ def bitmap_spmm(adj_words: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"x has {m} rows, not 32 W = {32 * w}")
     if backend_for(x, backend) == "torch":
         return bitmap_spmm_ref(adj_words, x)
-    return launch(adj_words, x, plan(adj_words.shape, x.shape, x.dtype))
+    return _launch(adj_words, x, plan(adj_words.shape, x.shape, x.dtype))
 
 
-def launch(adj_words: torch.Tensor, x: torch.Tensor, p: SpmmPlan
-           ) -> torch.Tensor:
-    """One launch of the CUDA kernel in layout ``p`` on card tensors
-    (:func:`bitmap_spmm` passes :func:`plan`'s); counts it."""
+def _launch(adj_words: torch.Tensor, x: torch.Tensor, route: str
+            ) -> torch.Tensor:
+    """One launch of the CUDA kernel on ``route`` (:func:`bitmap_spmm`
+    passes :func:`plan`'s), on card tensors of the shapes it checked;
+    counts it."""
     global SPMM_LAUNCHES
     dev = x.device
     for name, t in (("adj_words", adj_words), ("x", x)):
@@ -136,19 +124,11 @@ def launch(adj_words: torch.Tensor, x: torch.Tensor, p: SpmmPlan
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = (adj_words.data_ptr(), x.data_ptr(), out.data_ptr())
-    lib = _library()
-    if p.route == "split":
-        err = lib.bitmap_spmm_split_launch(
-            *ptrs, n, w, d, DTYPES[x.dtype], p.groups, p.units, stream)
-    elif p.route == "stream":
-        err = lib.bitmap_spmm_stream_launch(*ptrs, n, w, d, DTYPES[x.dtype],
-                                            stream)
-    else:
-        err = lib.bitmap_spmm_wide_launch(*ptrs, n, w, d, DTYPES[x.dtype],
-                                          stream)
+    launch = getattr(_library(), f"bitmap_spmm_{route}_launch")
+    err = launch(*ptrs, n, w, d, DTYPES[x.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"bitmap_spmm {p.route} launch failed: CUDA "
+        raise RuntimeError(f"bitmap_spmm {route} launch failed: CUDA "
                            f"error {err}")
     SPMM_LAUNCHES += 1
-    SPMM_ROUTES[p.route] += 1
+    SPMM_ROUTES[route] += 1
     return out

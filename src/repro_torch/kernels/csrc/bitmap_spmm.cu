@@ -24,24 +24,25 @@
 //
 // Three routes, picked by bitmap_spmm.plan from the shape:
 //
-// split (D <= 128 on rows of up to 1024 words; one block per (row,
-// 128-column tile), `groups` warps):
-//   1. Scan. The row is read in passes of 128 * units words per warp:
-//      each lane issues all of its `units` 16-byte loads of the pass
-//      (ld.global.cs, evict-first, so the bitmap stream does not push the
-//      gathered x rows out of L2; scalar loads where the row is not
-//      16-byte aligned) before it looks at any of them.
+// split (D <= 128 on rows of up to 512 words; one block of kSplitWarps
+// warps per (row, 128-column tile)):
+//   1. Scan. The row is read in passes of 512 words, one 16-byte load a
+//      lane (ld.global.cs, evict-first, so the bitmap stream does not
+//      push the gathered x rows out of L2; scalar loads where the row is
+//      not 16-byte aligned): one pass covers a row the route is planned
+//      for, longer rows take several.
 //   2. Compact. Each warp counts its words' set bits (a warp reduction),
 //      one barrier gives every warp its offset, and each lane writes the
 //      column indices of its set bits into a shared list in ascending
-//      column order (a warp scan per 512-byte round; rounds without a set
-//      bit are skipped by a ballot, no barrier). The list holds 1024
+//      column order (a warp scan; a warp without a set bit skips it by a
+//      ballot). The list holds 1024
 //      entries; a pass with more set bits is taken in windows of 1024.
-//   3. Gather. Each window's list is cut into `groups` slices of
-//      ceil(n / groups) entries, one per warp: a hub row's x loads run on
-//      every warp at once. A warp walks its slice kBatch x rows at a time,
-//      all loads of a batch issued before any add; each lane owns 4
-//      adjacent columns (one 16- or 8-byte load where x is aligned).
+//   3. Gather. Each window's list is cut into kSplitWarps slices of
+//      ceil(n / kSplitWarps) entries, one per warp: a hub row's x loads
+//      run on every warp at once. A warp walks its slice kBatch x rows
+//      at a time, all loads of a batch issued before any add; each lane
+//      owns 4 adjacent columns (one 16- or 8-byte load where x is
+//      aligned).
 //   4. Combine. Warp 0 folds in the other warps' (sum, error) pairs in
 //      warp order (TwoSum on the sums, the errors added).
 //
@@ -84,14 +85,15 @@
 
 namespace {
 
-constexpr int kMaxGroups = 4;          // split: warps per block
-constexpr int kUnits = 4;              // 16-byte word units a lane reads per pass (at most, split)
-constexpr int kWindow = 1024;          // split: list entries compacted at a time
+constexpr int kSplitWarps = 4;         // split: warps per block, a slice each
+                                       // of the list
+constexpr int kSplitPass = 128 * kSplitWarps;   // split: words per pass
+constexpr int kWindow = 1024;          // split: list entries at a time
 constexpr int kVec = 4;                // columns a thread owns
 constexpr int kTileCols = 32 * kVec;   // split: columns a warp owns
 constexpr int kWideThreads = 128;      // wide: threads per block
 constexpr int kWideCols = kWideThreads * kVec;   // wide: columns per block
-constexpr int kBatch = 4;              // split: x-row loads issued before their adds
+constexpr int kBatch = 4;              // split: x-row loads before the adds
 constexpr unsigned kFull = 0xffffffffu;
 
 // s + x into s, its rounding error into err (TwoSum: exact for any
@@ -203,29 +205,24 @@ __device__ __forceinline__ void add_batch(const int js[kB], int live,
 }
 
 // ---------------------------------------------------------------- split
-// The lane's `units` 16-byte units of the warp's words from `first`
-// (evict-first vector loads where the row is 16-byte aligned) and their
-// set bits; words past the row or past `units` read 0.
+// The lane's 4 words of the warp's 128 from `first` (one evict-first
+// vector load where the row is 16-byte aligned) and their set bits;
+// words past the row read 0.
 __device__ __forceinline__ void load_words(const unsigned* __restrict__ row,
                                            int first, int lane, int n_words,
-                                           int units, int vec_words,
-                                           unsigned w[kUnits][4],
-                                           int cnt[kUnits]) {
+                                           int vec_words, unsigned w[1][4],
+                                           int cnt[1]) {
+  const int w0 = first + 4 * lane;
+  if (vec_words) {
+    uint4 q = make_uint4(0u, 0u, 0u, 0u);
+    if (w0 < n_words) q = __ldcs(reinterpret_cast<const uint4*>(row + w0));
+    w[0][0] = q.x; w[0][1] = q.y; w[0][2] = q.z; w[0][3] = q.w;
+  } else {
 #pragma unroll
-  for (int r = 0; r < kUnits; ++r) {
-    const int w0 = first + 4 * (32 * r + lane);
-    const int end = r < units ? n_words : 0;
-    if (vec_words) {
-      uint4 q = make_uint4(0u, 0u, 0u, 0u);
-      if (w0 < end) q = __ldcs(reinterpret_cast<const uint4*>(row + w0));
-      w[r][0] = q.x; w[r][1] = q.y; w[r][2] = q.z; w[r][3] = q.w;
-    } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) w[r][k] = w0 + k < end ? row[w0 + k] : 0u;
-    }
-    cnt[r] = __popc(w[r][0]) + __popc(w[r][1]) + __popc(w[r][2]) +
-             __popc(w[r][3]);
+    for (int k = 0; k < 4; ++k) w[0][k] = w0 + k < n_words ? row[w0 + k] : 0u;
   }
+  cnt[0] = __popc(w[0][0]) + __popc(w[0][1]) + __popc(w[0][2]) +
+           __popc(w[0][3]);
 }
 
 // The column indices of the set bits of the warp's words (unit r of
@@ -233,13 +230,13 @@ __device__ __forceinline__ void load_words(const unsigned* __restrict__ row,
 // [win, win + kW) of the list, the warp's first bit at position `pos`,
 // into list[position - win], in ascending column order: a warp scan per
 // round of units; rounds without a set bit are skipped by a ballot.
-template <int kW>
-__device__ __forceinline__ void write_list(const unsigned w[kUnits][4],
-                                           const int cnt[kUnits], int first,
+template <int kW, int kU>
+__device__ __forceinline__ void write_list(const unsigned w[kU][4],
+                                           const int cnt[kU], int first,
                                            int lane, int pos, int win,
                                            int* list) {
 #pragma unroll
-  for (int r = 0; r < kUnits; ++r) {
+  for (int r = 0; r < kU; ++r) {
     if (__ballot_sync(kFull, cnt[r] != 0) == 0u) continue;
     int incl = cnt[r];
 #pragma unroll
@@ -266,57 +263,51 @@ __device__ __forceinline__ void write_list(const unsigned w[kUnits][4],
 }
 
 template <typename T, bool kVecX>
-__global__ void __launch_bounds__(kMaxGroups * 32, 8)
+__global__ void __launch_bounds__(kSplitWarps * 32, 8)
 split_kernel(const unsigned* __restrict__ words, const T* __restrict__ x,
-             T* __restrict__ out, int n_words, int n_cols, int units,
-             int vec_words) {
+             T* __restrict__ out, int n_words, int n_cols, int vec_words) {
   __shared__ int list[kWindow];
-  __shared__ int warp_bits[2][kMaxGroups];
-  __shared__ float part[kMaxGroups - 1][2][kTileCols];
+  __shared__ int warp_bits[2][kSplitWarps];
+  __shared__ float part[kSplitWarps - 1][2][kTileCols];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int groups = blockDim.x >> 5;
   // the lane's columns: 4 adjacent (kVecX), else lane + 32 c
   const int col_base = blockIdx.y * kTileCols + (kVecX ? kVec * lane : lane);
   const int col_step = 32;
   const unsigned* row = words + (long long)blockIdx.x * n_words;
-  const int warp_words = 128 * units;
-  const int pass_words = groups * warp_words;
   float s[kVec], e[kVec];
 #pragma unroll
   for (int c = 0; c < kVec; ++c) s[c] = e[c] = 0.f;
 
   int parity = 0;
-  for (int p0 = 0; p0 < n_words; p0 += pass_words, parity ^= 1) {
-    // 1. every load of the pass before any use of one
-    const int first = p0 + warp * warp_words;
-    unsigned w[kUnits][4];
-    int cnt[kUnits];
-    load_words(row, first, lane, n_words, units, vec_words, w, cnt);
+  for (int p0 = 0; p0 < n_words; p0 += kSplitPass, parity ^= 1) {
+    // 1. the pass's words, one load a lane
+    const int first = p0 + 128 * warp;
+    unsigned w[1][4];
+    int cnt[1];
+    load_words(row, first, lane, n_words, vec_words, w, cnt);
     // 2. set bits per warp, then each warp's offset in the pass's list
-    int mine = 0;
-#pragma unroll
-    for (int r = 0; r < kUnits; ++r) mine += cnt[r];
-    const int warp_total = (int)__reduce_add_sync(kFull, (unsigned)mine);
+    const int warp_total = (int)__reduce_add_sync(kFull, (unsigned)cnt[0]);
     if (lane == 0) warp_bits[parity][warp] = warp_total;
     __syncthreads();
     int base = 0, n = 0;
-    for (int k = 0; k < groups; ++k) {
+#pragma unroll
+    for (int k = 0; k < kSplitWarps; ++k) {
       const int b = warp_bits[parity][k];
       base += k < warp ? b : 0;
       n += b;
     }
-    const bool last_pass = p0 + pass_words >= n_words;
+    const bool last_pass = p0 + kSplitPass >= n_words;
     // 3. the list a window at a time: compact, slice, gather
     for (int win = 0; win < n; win += kWindow) {
       // a later window loads the words again (from L2), so that they
       // are not held in registers across the gather
       if (win > 0)
-        load_words(row, first, lane, n_words, units, vec_words, w, cnt);
-      write_list<kWindow>(w, cnt, first, lane, base, win, list);
+        load_words(row, first, lane, n_words, vec_words, w, cnt);
+      write_list<kWindow, 1>(w, cnt, first, lane, base, win, list);
       __syncthreads();
       const int n_win = min(kWindow, n - win);
-      const int len = (n_win + groups - 1) / groups;
+      const int len = (n_win + kSplitWarps - 1) / kSplitWarps;
       const int lo = min(n_win, warp * len);
       const int hi = min(n_win, lo + len);
       for (int k = lo; k < hi; k += kBatch) {
@@ -331,22 +322,21 @@ split_kernel(const unsigned* __restrict__ words, const T* __restrict__ x,
   }
 
   // 4. fold warps 1.. into warp 0, in warp order
-  if (groups > 1) {
-    if (warp > 0) {
+  if (warp > 0) {
 #pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        part[warp - 1][0][32 * c + lane] = s[c];
-        part[warp - 1][1][32 * c + lane] = e[c];
-      }
+    for (int c = 0; c < kVec; ++c) {
+      part[warp - 1][0][32 * c + lane] = s[c];
+      part[warp - 1][1][32 * c + lane] = e[c];
     }
-    __syncthreads();
-    if (warp > 0) return;
-    for (int k = 1; k < groups; ++k) {
+  }
+  __syncthreads();
+  if (warp > 0) return;
 #pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        two_sum(s[c], e[c], part[k - 1][0][32 * c + lane]);
-        e[c] += part[k - 1][1][32 * c + lane];
-      }
+  for (int k = 1; k < kSplitWarps; ++k) {
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) {
+      two_sum(s[c], e[c], part[k - 1][0][32 * c + lane]);
+      e[c] += part[k - 1][1][32 * c + lane];
     }
   }
   store_cols<T, kVecX>(out + (long long)blockIdx.x * n_cols, col_base,
@@ -356,21 +346,22 @@ split_kernel(const unsigned* __restrict__ words, const T* __restrict__ x,
 // ---------------------------------------------------------------- stream
 constexpr int kStreamWarps = 4;        // stream: rows per block, a warp each
 constexpr int kStages = 4;             // stream: passes in flight per warp
-constexpr int kPassWords = 512;        // stream: words per pass, 4 units a lane
-constexpr int kStreamWindow = 256;     // stream: list entries per warp at a time
+constexpr int kStreamUnits = 4;        // stream: 16-byte units a lane copies
+constexpr int kPassWords = 128 * kStreamUnits;   // stream: words per pass
+constexpr int kStreamWindow = 256;     // stream: list entries a warp holds
 
-// Pass p of the row into its ring slot: the lane's kUnits 16-byte units
-// (words p kPassWords + 4 (32 r + lane) ..), by cp.async — 16-byte copies
-// that keep L1 out and are marked evict-first in L2 (`policy`) where the
-// row is aligned, else word by word. One commit group per call, empty
-// past the row, so that wait_group counts passes.
+// Pass p of the row into its ring slot: the lane's kStreamUnits 16-byte
+// units (words p kPassWords + 4 (32 r + lane) ..), by cp.async — 16-byte
+// copies that keep L1 out and are marked evict-first in L2 (`policy`)
+// where the row is aligned, else word by word. One commit group per
+// call, empty past the row, so that wait_group counts passes.
 __device__ __forceinline__ void issue_pass(uint4 (*slot)[32],
                                            const unsigned* row, int p,
                                            int lane, int n_words,
                                            int vec_words,
                                            unsigned long long policy) {
 #pragma unroll
-  for (int r = 0; r < kUnits; ++r) {
+  for (int r = 0; r < kStreamUnits; ++r) {
     const int w0 = p * kPassWords + 4 * (32 * r + lane);
     const unsigned dst =
         static_cast<unsigned>(__cvta_generic_to_shared(&slot[r][lane]));
@@ -397,10 +388,10 @@ __device__ __forceinline__ void issue_pass(uint4 (*slot)[32],
 // other lane's wait is needed), words past the row as 0, and their bits.
 __device__ __forceinline__ void read_pass(uint4 (*slot)[32], int p,
                                           int lane, int n_words,
-                                          unsigned w[kUnits][4],
-                                          int cnt[kUnits]) {
+                                          unsigned w[kStreamUnits][4],
+                                          int cnt[kStreamUnits]) {
 #pragma unroll
-  for (int r = 0; r < kUnits; ++r) {
+  for (int r = 0; r < kStreamUnits; ++r) {
     const uint4 q = slot[r][lane];
     const int w0 = p * kPassWords + 4 * (32 * r + lane);
     w[r][0] = w0 < n_words ? q.x : 0u;
@@ -412,12 +403,18 @@ __device__ __forceinline__ void read_pass(uint4 (*slot)[32], int p,
   }
 }
 
+// Shared memory sets six blocks an SM (36 KB each: the ring 32 KB, the
+// lists 4 KB; 1 KB reserved; 228 KB an SM) while a thread holds at most
+// 85 registers. The cap of 72 is not for occupancy: on an H100 it measured
+// faster on the 65536-vertex graph in f32 than the 80 that a six-block
+// launch bound gives and than no bound (78-96); of the four builds only
+// the unaligned bf16 one spills, 8 bytes.
 template <typename T, bool kVecX>
-__global__ void __launch_bounds__(kStreamWarps * 32, 7)
+__global__ void __maxnreg__(72)
 stream_kernel(const unsigned* __restrict__ words, const T* __restrict__ x,
               T* __restrict__ out, int n_rows, int n_words, int n_cols,
               int vec_words) {
-  __shared__ uint4 ring[kStreamWarps][kStages][kUnits][32];
+  __shared__ uint4 ring[kStreamWarps][kStages][kStreamUnits][32];
   __shared__ int lists[kStreamWarps][kStreamWindow];
   // x-row loads issued before their adds: a hub row is one warp's
   // sequence here, and in f32 8 in flight walked it faster than 4
@@ -428,7 +425,7 @@ stream_kernel(const unsigned* __restrict__ words, const T* __restrict__ x,
   if (row_index >= n_rows) return;     // no block barrier below
   const int col_base = blockIdx.y * kTileCols + (kVecX ? kVec * lane : lane);
   const unsigned* row = words + (long long)row_index * n_words;
-  uint4 (*const slots)[kUnits][32] = ring[warp];
+  uint4 (*const slots)[kStreamUnits][32] = ring[warp];
   int* list = lists[warp];
   float s[kVec], e[kVec];
 #pragma unroll
@@ -449,16 +446,17 @@ stream_kernel(const unsigned* __restrict__ words, const T* __restrict__ x,
     issue_pass(slots[ahead % kStages], row, ahead, lane, n_words, vec_words,
                policy);
     asm volatile("cp.async.wait_group %0;" :: "n"(kStages - 1) : "memory");
-    unsigned w[kUnits][4];
-    int cnt[kUnits];
+    unsigned w[kStreamUnits][4];
+    int cnt[kStreamUnits];
     read_pass(slots[p % kStages], p, lane, n_words, w, cnt);
     int mine = 0;
 #pragma unroll
-    for (int r = 0; r < kUnits; ++r) mine += cnt[r];
+    for (int r = 0; r < kStreamUnits; ++r) mine += cnt[r];
     const int n = (int)__reduce_add_sync(kFull, (unsigned)mine);
     for (int win = 0; win < n; win += kStreamWindow) {
       if (win > 0) read_pass(slots[p % kStages], p, lane, n_words, w, cnt);
-      write_list<kStreamWindow>(w, cnt, p * kPassWords, lane, 0, win, list);
+      write_list<kStreamWindow, kStreamUnits>(w, cnt, p * kPassWords, lane, 0,
+                                              win, list);
       __syncwarp();
       const int hi = min(kStreamWindow, n - win);
       for (int k = 0; k < hi; k += kStreamBatch) {
@@ -534,17 +532,17 @@ wide_kernel(const unsigned* __restrict__ words, const T* __restrict__ x,
 }
 
 template <typename T>
-void split_launch(dim3 grid, int threads, cudaStream_t stream, bool vec_x,
+void split_launch(dim3 grid, cudaStream_t stream, bool vec_x,
                   const unsigned* w, const void* x, void* out, int n_words,
-                  int n_cols, int units, int vec_words) {
+                  int n_cols, int vec_words) {
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
   if (vec_x) {
-    split_kernel<T, true><<<grid, threads, 0, stream>>>(
-        w, xt, ot, n_words, n_cols, units, vec_words);
+    split_kernel<T, true><<<grid, kSplitWarps * 32, 0, stream>>>(
+        w, xt, ot, n_words, n_cols, vec_words);
   } else {
-    split_kernel<T, false><<<grid, threads, 0, stream>>>(
-        w, xt, ot, n_words, n_cols, units, vec_words);
+    split_kernel<T, false><<<grid, kSplitWarps * 32, 0, stream>>>(
+        w, xt, ot, n_words, n_cols, vec_words);
   }
 }
 
@@ -563,14 +561,12 @@ bool aligned_x(const void* x, const void* out, int n_cols, int dtype) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x and out alike). The split route:
-// `groups` warps (1..4) a block slice each row's list; each lane reads
-// `units` (1..4) 16-byte units of the row per pass.
+// kSplitWarps warps a row; rows longer than kSplitPass words are read in
+// several passes (the stream route takes them when planned).
 extern "C" int bitmap_spmm_split_launch(const int* words, const void* x,
                                         void* out, int n_rows, int n_words,
-                                        int n_cols, int dtype, int groups,
-                                        int units, void* stream) {
-  if (!valid(n_rows, n_words, n_cols, dtype) || groups < 1 ||
-      groups > kMaxGroups || units < 1 || units > kUnits) {
+                                        int n_cols, int dtype, void* stream) {
+  if (!valid(n_rows, n_words, n_cols, dtype)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_rows == 0 || n_cols == 0) return 0;
@@ -582,11 +578,11 @@ extern "C" int bitmap_spmm_split_launch(const int* words, const void* x,
   const unsigned* w = reinterpret_cast<const unsigned*>(words);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
-    split_launch<float>(grid, 32 * groups, st, vec_x, w, x, out, n_words,
-                        n_cols, units, vec_words);
+    split_launch<float>(grid, st, vec_x, w, x, out, n_words, n_cols,
+                        vec_words);
   } else {
-    split_launch<__nv_bfloat16>(grid, 32 * groups, st, vec_x, w, x, out,
-                                n_words, n_cols, units, vec_words);
+    split_launch<__nv_bfloat16>(grid, st, vec_x, w, x, out, n_words, n_cols,
+                                vec_words);
   }
   return (int)cudaGetLastError();
 }

@@ -196,7 +196,7 @@ def _two_sum(s: torch.Tensor, err: torch.Tensor, v: torch.Tensor
 
 
 def spmm_split_schedule(adj_words: torch.Tensor, groups: int = 4,
-                        pass_words: int = 2048, window: int = 1024
+                        pass_words: int = 512, window: int = 1024
                         ) -> torch.Tensor:
     """The CUDA kernel's order of x rows: int64 [N, groups, depth],
     entry ``[i, g, t]`` the column whose x row group g of row i's block
@@ -254,18 +254,19 @@ def spmm_split_schedule(adj_words: torch.Tensor, groups: int = 4,
 
 
 def bitmap_spmm_split_ref(adj_words: torch.Tensor, x: torch.Tensor,
-                          groups: int = 4, pass_words: int = 2048,
-                          window: int = 1024, batch: int = 4
-                          ) -> torch.Tensor:
+                          groups: int = 4, pass_words: int = 512,
+                          window: int = 1024) -> torch.Tensor:
     """``A @ x`` as the CUDA kernel decomposes it, all in f32: the
-    kernel's ``split`` route with its defaults; ``groups=1`` is the
-    ``stream`` and ``wide`` routes (one ascending sequence a row).
+    kernel's ``split`` route with its defaults (4 warps a row, passes of
+    512 words, lists of 1024 entries); ``groups=1`` is the ``stream``
+    and ``wide`` routes (one ascending sequence a row).
 
-    Group g of each row walks its sequence of :func:`spmm_split_schedule`
-    ``batch`` x rows at a time (the loads of a batch are issued together,
-    the adds made in order) into a TwoSum pair ``(s, err)``. Group 0's
-    pair then takes in groups 1.. in order (TwoSum on the sums, the
-    errors added), and ``s + err`` is rounded once to ``x.dtype``.
+    Group g of each row adds the x rows of its sequence of
+    :func:`spmm_split_schedule`, in order, into a TwoSum pair
+    ``(s, err)`` (the kernel issues a few of the loads together; the
+    adds stay in this order). Group 0's pair then takes in groups 1..
+    in order (TwoSum on the sums, the errors added), and ``s + err`` is
+    rounded once to ``x.dtype``.
 
     Every operation is the kernel's, in the kernel's order (an x row of
     zeros past a sequence's end adds nothing), so on the card the two
@@ -279,10 +280,8 @@ def bitmap_spmm_split_ref(adj_words: torch.Tensor, x: torch.Tensor,
     xz = torch.cat([x.float(), torch.zeros((1, d), device=dev)])  # row 32 W
     s = torch.zeros((n, groups, d), device=dev)
     err = torch.zeros_like(s)
-    for k in range(0, idx.shape[2], batch):
-        vals = xz[idx[:, :, k:k + batch]]               # one batch of loads
-        for u in range(vals.shape[2]):
-            s, err = _two_sum(s, err, vals[:, :, u])
+    for k in range(idx.shape[2]):
+        s, err = _two_sum(s, err, xz[idx[:, :, k]])
     total, total_err = s[:, 0], err[:, 0]
     for g in range(1, groups):
         total, total_err = _two_sum(total, total_err, s[:, g])

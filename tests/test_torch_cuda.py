@@ -176,11 +176,30 @@ def test_cuda_spmm_kernel_equals_its_emulation(cuda_device, n, w, d,
     f32, on the same card) agree bit for bit on either route."""
     words, x = (t.to(cuda_device) for t in _spmm_inputs(
         n, w, d, density, n + w, dtype))
-    p = bitmap_spmm.plan(words.shape, x.shape, dtype)
+    route = bitmap_spmm.plan(words.shape, x.shape, dtype)
     got = bitmap_spmm.bitmap_spmm(words, x)
-    want = bitmap_spmm_split_ref(words, x, groups=p.groups,
-                                 pass_words=p.pass_words)
+    want = bitmap_spmm_split_ref(words, x,
+                                 groups=bitmap_spmm.row_slices(route))
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("route", ["split", "stream", "wide"])
+@pytest.mark.parametrize("n,w,d,density", [
+    (4, 32, 128, 0.68),          # hub rows of ~700 set bits
+    (5, 2101, 64, 0.03),         # several passes of each route, unaligned
+    (40, 3, 129, 0.3)])          # two column tiles of split and stream
+def test_cuda_spmm_every_route_takes_any_shape(cuda_device, route, n, w, d,
+                                               density):
+    """Each route, launched off its plan (as ``scripts/spmm_sweep.py``
+    times them), is within tolerance of the plain version and equals its
+    emulation bit for bit."""
+    words, x = (t.to(cuda_device) for t in _spmm_inputs(
+        n, w, d, density, n + w, torch.float32))
+    got = bitmap_spmm._launch(words, x, route)
+    torch.testing.assert_close(got, bitmap_spmm_ref(words, x), rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(got, bitmap_spmm_split_ref(
+        words, x, groups=bitmap_spmm.row_slices(route)))
 
 
 def test_cuda_spmm_kernel_is_deterministic(cuda_device):

@@ -4,8 +4,8 @@ The kernel (``csrc/bitmap_spmm.cu``) runs only on the card
 (``tests/test_torch_cuda.py``, where it equals its emulation bit for
 bit). Here ``ref.bitmap_spmm_split_ref`` — the same decomposition in the
 same f32 operations: each row's set-bit list cut into per-warp slices
-(passes of the row, windows of the shared list), walked in batches of
-x-row loads into TwoSum pairs, the pairs combined in warp order — is
+(passes of the row, windows of the shared list), each slice added in
+order into a TwoSum pair, the pairs combined in warp order — is
 held against the JAX package's Pallas SpMM in interpret mode
 (``repro.kernels.ops.bitmap_spmm_op(..., backend="pallas_interpret")``)
 and against the port's plain f64 version, on the same numpy inputs made
@@ -25,8 +25,8 @@ from repro.core.graph import pack_bitmap
 from repro.data.graph_gen import human_like_graph
 from repro.kernels import ops as jops
 from repro_torch.kernels import bitmap_spmm
-from repro_torch.kernels.bitmap_spmm import (LONG_ROW_WORDS, MAX_UNITS,
-                                             SPLIT_MAX_COLS, SpmmPlan, plan)
+from repro_torch.kernels.bitmap_spmm import (LONG_ROW_WORDS, SPLIT_MAX_COLS,
+                                             plan)
 from repro_torch.kernels.ref import (bitmap_spmm_ref, bitmap_spmm_split_ref,
                                      spmm_split_schedule)
 
@@ -70,6 +70,12 @@ def _words(dense):
     return torch.from_numpy(pack_bitmap(dense).view(np.int32))
 
 
+def _emulate(words, x):
+    """The emulation in the layout of the route ``plan`` gives."""
+    return bitmap_spmm_split_ref(words, x, groups=bitmap_spmm.row_slices(
+        plan(words.shape, x.shape, x.dtype)))
+
+
 def _close(got, want, dtype):
     tol = TOL[dtype]
     np.testing.assert_allclose(np.asarray(got, np.float32),
@@ -93,9 +99,7 @@ def test_split_emulation_matches_pallas_and_plain(d, dtype):
     x = _x_exact(dense.shape[1], d, d + 1)
     words = _words(dense)
     xt = torch.from_numpy(x).to(dtype)
-    p = plan(words.shape, xt.shape, dtype)
-    got = bitmap_spmm_split_ref(words, xt, groups=p.groups,
-                                pass_words=p.pass_words)
+    got = _emulate(words, xt)
     assert got.dtype == dtype and got.shape == (5, d)
     assert not bool(got[3].any())                      # the empty row
     _close(got.float(), _pallas(dense, x, {F32: jnp.float32,
@@ -115,9 +119,7 @@ def test_split_emulation_normal_x_matches_plain(d, dtype):
     x = _x(dense.shape[1], d, d + 2)
     words = _words(dense)
     xt = torch.from_numpy(x).to(dtype)
-    p = plan(words.shape, xt.shape, dtype)
-    got = bitmap_spmm_split_ref(words, xt, groups=p.groups,
-                                pass_words=p.pass_words)
+    got = _emulate(words, xt)
     _close(got.float(), bitmap_spmm_ref(words, xt).float(), dtype)
     pallas = _pallas(dense, x, {F32: jnp.float32, BF16: jnp.bfloat16}[dtype])
     _close(got.float()[1:], pallas[1:], dtype)
@@ -154,12 +156,13 @@ def test_split_emulation_hub_row_every_split(groups):
 
 
 def test_split_emulation_windows_and_passes():
-    """Rows of 2101 words (two passes of 2048) with ~2000 set bits (two
-    windows of the 1024-entry list each) and bit 31 of every word set on
-    every third row."""
+    """Rows of 2101 words (five passes of 512) with ~4000 set bits and
+    bit 31 of every word set on every third row (those rows' passes take
+    two windows of the 1024-entry list)."""
     rng = np.random.default_rng(21)
-    dense = rng.random((4, 32 * 2101)) < 0.03
+    dense = rng.random((4, 32 * 2101)) < 0.06
     dense[::3, 31::32] = True
+    assert dense[0, :32 * 512].sum() > 1024
     x = _x_exact(dense.shape[1], 16, 22)
     words = _words(dense)
     got = bitmap_spmm_split_ref(words, torch.from_numpy(x))
@@ -229,28 +232,23 @@ def test_schedule_every_set_bit_once():
 
 # ---------------------------------------------------------------- plan
 @pytest.mark.parametrize("words_shape,x_shape,want", [
-    ((4674, 147), (4704, 128), SpmmPlan("split", 4, 1)),     # (a) human
-    ((65536, 2048), (65536, 128), SpmmPlan("stream")),       # (c) scale
-    ((2708, 85), (2720, 1433), SpmmPlan("wide")),            # (b) Cora
-    ((1, 147), (4704, 1), SpmmPlan("split", 4, 1)),          # N 1, D 1
-    ((4674, 147), (4704, 129), SpmmPlan("wide")),            # D 129
-    ((50, 1), (32, 8), SpmmPlan("split", 4, 1)),             # M 32
-    ((10, 513), (16416, 64), SpmmPlan("split", 4, 2)),
-    ((10, 1024), (32768, 64), SpmmPlan("split", 4, 2)),
-    ((10, 1025), (32800, 64), SpmmPlan("stream")),           # a long row
-    ((10, 2101), (67232, 64), SpmmPlan("stream")),
-    ((10, 3), (96, 4096), SpmmPlan("wide")),
+    ((4674, 147), (4704, 128), "split"),     # (a) human
+    ((65536, 2048), (65536, 128), "stream"),  # (c) scale
+    ((2708, 85), (2720, 1433), "wide"),       # (b) Cora
+    ((1, 147), (4704, 1), "split"),           # N 1, D 1
+    ((4674, 147), (4704, 129), "wide"),       # D 129
+    ((50, 1), (32, 8), "split"),              # M 32
+    ((10, 512), (16384, 64), "split"),
+    ((10, 513), (16416, 64), "stream"),       # a long row
+    ((10, 1024), (32768, 64), "stream"),
+    ((10, 2101), (67232, 64), "stream"),
+    ((10, 3), (96, 4096), "wide"),
 ])
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_plan_routes(words_shape, x_shape, want, dtype):
-    p = plan(words_shape, x_shape, dtype)
-    assert p == want
-    if p.route == "split":
+    assert plan(words_shape, x_shape, dtype) == want
+    if want != "wide":
         assert x_shape[1] <= SPLIT_MAX_COLS
-        assert 1 <= p.groups <= 4 and 1 <= p.units <= MAX_UNITS
-        # a pass covers the row, or the most a lane reads
-        assert p.pass_words >= words_shape[1] or p.units == MAX_UNITS
-        assert p.pass_words == 128 * p.units * p.groups
 
 
 def test_plan_long_rows_stream_short_rows_split():
@@ -258,10 +256,12 @@ def test_plan_long_rows_stream_short_rows_split():
     ones (the scale graph's 2048) stream, a warp per row, summed in one
     sequence; wider D takes the wide route whatever the row."""
     assert plan((8, LONG_ROW_WORDS), (32 * LONG_ROW_WORDS, 128), F32) \
-        == SpmmPlan("split", 4, 2)
+        == "split"
     assert plan((8, LONG_ROW_WORDS + 1), (32 * LONG_ROW_WORDS + 32, 128),
-                F32).groups == 1
-    assert plan((8, 4096), (131072, 129), BF16) == SpmmPlan("wide")
+                F32) == "stream"
+    assert plan((8, 4096), (131072, 129), BF16) == "wide"
+    assert [bitmap_spmm.row_slices(r) for r in ("split", "stream", "wide")] \
+        == [4, 1, 1]
 
 
 def test_plan_raises_for_other_dtypes():
