@@ -10,9 +10,10 @@ Drives the port (``src/repro_torch``), never the JAX package:
    same time;
 2. holds each kernel bit for bit against its plain PyTorch version on
    the card: the dense refine at the human-like main-path shape and at
-   ragged edge cases; the hierarchical refine at the scale graph's
-   main-path shape, at chunk widths 1, 4, 8 and 16 (one wider than the
-   row), at ragged edge cases and on a 262144-vertex graph;
+   ragged edge cases (rows with all 64 positions active among them); the
+   hierarchical refine at the scale graph's main-path shape, at chunk
+   widths 1, 4, 8 and 16 (one wider than the row), at ragged edge cases,
+   on a 262144-vertex graph and with 64 active hub positions a row;
 3. serves five workloads through ``QueryServer(backend="engine")`` on
    the card with default knobs — 16 eight-vertex queries on the
    human-like graph (limit 1000), the trap graph (limit None), the
@@ -34,7 +35,11 @@ Drives the port (``src/repro_torch``), never the JAX package:
    the scale run;
 6. times each kernel and its plain version on inputs captured from its
    run (human-like for the dense, scale for the hierarchical), beside
-   the bound of those inputs;
+   the bound of those inputs and the launch floor (``launch_floor_ms``:
+   a one-element ``zero_()`` timed the same way); the hierarchical
+   kernel's line also gives the work of an average call (``per_call``:
+   live rows, walked positions, live chunk reads, distinct live chunks,
+   bytes of its bound);
 7. profiles a short window of human-like and of scale dispatches
    (kernel launches per iteration, the device's busy share);
 8. drives the kernel-op layer (``repro_torch.kernels.ops``) once, each
@@ -180,6 +185,9 @@ def kernel_cases(adj_human):
     fr = fr.copy()
     fr[:, 1::4] = adj.shape[0] + 5
     cases.append(("frontier past V (clamped)", adj, cand, fr, act))
+    fr = rng.integers(0, adj.shape[0], fr.shape).astype(np.int32)
+    cases.append(("all 64 positions active", adj, cand, fr,
+                  np.ones_like(fr)))
     return cases
 
 
@@ -280,6 +288,11 @@ def hier_cases(scale_graph, big_n: int = 262144):
     cases.append(hier_case(
         rng, f"V{big_n} F512 W{(big_n + 31) // 32} "
         f"SW{big.summary.shape[1]} C8", big, 512, hubs=64))
+    cand, _, _ = refine_inputs(rng, scale_graph.n,
+                               (scale_graph.n + 31) // 32, 64, 64, 8)
+    fr = rng.integers(0, 16, (64, 64)).astype(np.int32)    # the hubs
+    cases.append(("scale, 64 active hub positions", hier_lanes(hb), hb.kmax,
+                  cand, fr, np.ones_like(fr)))
     return cases
 
 
@@ -608,6 +621,15 @@ def device_ms(fn, samples) -> float:
     del graph
     torch.cuda.empty_cache()
     return ms
+
+
+def launch_floor_ms(dev) -> float:
+    """Device time of the smallest kernel node, by the same CUDA-graph
+    replay as the kernels (``zero_()`` of a one-element tensor): the
+    fixed cost of a node, beside which a kernel's own work shows."""
+    import torch
+    one = torch.zeros(1, device=dev)
+    return device_ms(torch.Tensor.zero_, [(one,)] * N_SAMPLES)
 
 
 def eager_ms(fn, samples) -> float:
@@ -1198,6 +1220,8 @@ def kernel_row(name, source, replaces, launches, worst, timing,
            "replaces": replaces, "launches": launches,
            "max_abs_err": max(worst, timing.get("max_abs_err", 0)),
            **{k: timing.get(k) for k in TIMING_KEYS}}
+    if "launch_floor_ms" in timing:
+        row["launch_floor_ms"] = timing["launch_floor_ms"]
     if cases:
         row["cases"] = {c: {k: t.get(k) for k in TIMING_KEYS + (
             "route", "gathered_bytes")} for c, t in cases.items()}
@@ -1256,9 +1280,11 @@ def main() -> int:
     info("serve-plain", identical=True, **plain["summary"])
 
     info("hier-vs-dense", **hier_against_dense(hier_samples, scale))
-    timing = time_kernel(samples)
+    floor = launch_floor_ms(dev)
+    timing = {**time_kernel(samples), "launch_floor_ms": floor}
     info("kernel-time", **timing)
-    timing_hier = time_hier_kernel(hier_samples)
+    timing_hier = {**time_hier_kernel(hier_samples),
+                   "launch_floor_ms": floor}
     info("hier-kernel-time", **timing_hier)
     for name in ("human", "scale"):
         prof = profile_window(dev, wl, name)

@@ -38,16 +38,17 @@ def _library(name: str = "refine_bitmap_rows") -> ctypes.CDLL:
     return build.load(name, SIGNATURES[name])
 
 
-def _check(name: str, t: torch.Tensor, device: torch.device,
-           ndim: int) -> None:
+def _checked(name: str, t: torch.Tensor, device: torch.device,
+             ndim: int) -> torch.Tensor:
+    """``t`` as the kernel reads it: on ``device``, int32, ``ndim``-D,
+    contiguous (a strided view is copied)."""
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, expected {device}")
     if t.dtype != torch.int32:
         raise TypeError(f"{name} must be int32, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    return t.contiguous()
 
 
 def refine_bitmap_rows(adj_bitmap: torch.Tensor, cand_rows: torch.Tensor,
@@ -58,17 +59,18 @@ def refine_bitmap_rows(adj_bitmap: torch.Tensor, cand_rows: torch.Tensor,
     ``adj_bitmap`` int32 [V, W], ``cand_rows`` int32 [F, W], ``frontier``
     int32 [F, NP] (-1 unmapped), ``active`` int32 [F, NP]; returns int32
     [F, W]. Same semantics as ``ref.refine_bitmap_rows_ref``.
-    ``backend`` names this call's backend (``config.backend_for``).
+    ``backend`` names this call's backend (``config.backend_for``). The
+    CUDA kernel reads a strided input from a contiguous copy.
     """
     if backend_for(cand_rows, backend) == "torch":
         return refine_bitmap_rows_ref(adj_bitmap, cand_rows, frontier,
                                       active)
     global LAUNCHES
     dev = cand_rows.device
-    for name, t, nd in (("adj_bitmap", adj_bitmap, 2),
-                        ("cand_rows", cand_rows, 2),
-                        ("frontier", frontier, 2), ("active", active, 2)):
-        _check(name, t, dev, nd)
+    adj_bitmap, cand_rows, frontier, active = (
+        _checked(name, t, dev, 2) for name, t in (
+            ("adj_bitmap", adj_bitmap), ("cand_rows", cand_rows),
+            ("frontier", frontier), ("active", active)))
     v, w = adj_bitmap.shape
     f, np_ = frontier.shape
     if cand_rows.shape != (f, w) or active.shape != (f, np_):
@@ -106,7 +108,8 @@ def refine_bitmap_rows_hier(summary: torch.Tensor, chunk_ptr: torch.Tensor,
     ``ref.refine_bitmap_rows_hier_ref``. ``dma_depth`` is accepted for
     parity with the reference (its chunk-copy pipeline depth); the CUDA
     kernel does not read it and it changes no bit. ``backend`` names
-    this call's backend (``config.backend_for``).
+    this call's backend (``config.backend_for``). The CUDA kernel reads a
+    strided input from a contiguous copy.
     """
     if dma_depth is not None and int(dma_depth) < 1:
         raise ValueError(f"dma_depth must be >= 1, got {dma_depth!r}")
@@ -116,12 +119,12 @@ def refine_bitmap_rows_hier(summary: torch.Tensor, chunk_ptr: torch.Tensor,
                                            frontier, active)
     global HIER_LAUNCHES
     dev = cand_rows.device
-    for name, t, nd in (("summary", summary, 2), ("chunk_ptr", chunk_ptr, 1),
-                        ("chunk_id", chunk_id, 1),
-                        ("chunk_data", chunk_data, 2),
-                        ("cand_rows", cand_rows, 2),
-                        ("frontier", frontier, 2), ("active", active, 2)):
-        _check(name, t, dev, nd)
+    (summary, chunk_ptr, chunk_id, chunk_data, cand_rows, frontier,
+     active) = (_checked(name, t, dev, nd) for name, t, nd in (
+         ("summary", summary, 2), ("chunk_ptr", chunk_ptr, 1),
+         ("chunk_id", chunk_id, 1), ("chunk_data", chunk_data, 2),
+         ("cand_rows", cand_rows, 2), ("frontier", frontier, 2),
+         ("active", active, 2)))
     v, sw = summary.shape
     n_store, c = chunk_data.shape
     f, np_ = frontier.shape
@@ -143,7 +146,8 @@ def refine_bitmap_rows_hier(summary: torch.Tensor, chunk_ptr: torch.Tensor,
     if f == 0 or w == 0:
         return out
     lib = _library("refine_bitmap_rows_hier")
-    smem = 4 * (w + sw)
+    smem = 4 * (4 * -(-w // 4) + sw)    # the row in 16-byte units and the
+                                        # positions' summary intersection
     if smem > 48 * 1024:
         limit = lib.refine_bitmap_rows_hier_max_smem()
         if limit < 0:
@@ -151,8 +155,9 @@ def refine_bitmap_rows_hier(summary: torch.Tensor, chunk_ptr: torch.Tensor,
                                f"{-limit} reading the shared-memory limit")
         if smem > limit:
             raise ValueError(
-                f"refine_bitmap_rows_hier keeps a row of W = {w} words in "
-                f"shared memory ({smem} bytes); this card allows {limit}")
+                f"refine_bitmap_rows_hier keeps a row of W = {w} words and "
+                f"its summary in shared memory ({smem} bytes); this card "
+                f"allows {limit}")
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.refine_bitmap_rows_hier_launch(
         summary.data_ptr(), chunk_ptr.data_ptr(), chunk_id.data_ptr(),

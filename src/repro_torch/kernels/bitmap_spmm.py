@@ -3,9 +3,9 @@
 :func:`bitmap_spmm` is the port of the reference's Pallas kernel of the
 same name (``repro/kernels/bitmap_spmm.py``): ``A @ x`` for a 0/1 matrix
 given as packed words. For a CPU tensor it runs the plain
-``ref.bitmap_spmm_ref``. For a CUDA tensor it launches one of two
-hand-written kernels of ``csrc/bitmap_spmm.cu`` (built and loaded by
-``build.py``), picked by :func:`plan` from the shape alone:
+``ref.bitmap_spmm_ref``. For a CUDA tensor it launches one of three
+hand-written kernels (routes) of ``csrc/bitmap_spmm.cu`` (built and
+loaded by ``build.py``), picked by :func:`plan` from the shape alone:
 
 * ``split`` — D up to 128 (one warp holds a row's columns): each row's
   set-bit list is cut into one slice per warp of its block
@@ -53,8 +53,8 @@ def plan(words_shape, x_shape, dtype: torch.dtype) -> str:
 
     The cut is where the two routes crossed on square power-law graphs
     of mean degree 6 and 36 on an H100 (``scripts/spmm_sweep.py``):
-    ``split`` faster up to 256 and 512 words, ``stream`` from 512 and
-    1024.
+    ``split`` faster up to 384 and 512 words, ``stream`` from 512 and
+    768.
     """
     if dtype not in DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {dtype}")
@@ -104,19 +104,17 @@ def bitmap_spmm(adj_words: torch.Tensor, x: torch.Tensor,
 def _launch(adj_words: torch.Tensor, x: torch.Tensor, route: str
             ) -> torch.Tensor:
     """One launch of the CUDA kernel on ``route`` (:func:`bitmap_spmm`
-    passes :func:`plan`'s), on card tensors of the shapes it checked;
-    counts it."""
+    passes :func:`plan`'s), on card tensors of the shapes it checked
+    (strided ones read from contiguous copies); counts it."""
     global SPMM_LAUNCHES
     dev = x.device
-    for name, t in (("adj_words", adj_words), ("x", x)):
-        if t.device != dev:
-            raise ValueError(f"{name} on {t.device}, expected {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if adj_words.device != dev:
+        raise ValueError(f"adj_words on {adj_words.device}, expected {dev}")
     if adj_words.dtype != torch.int32:
         raise TypeError(f"adj_words must be int32, got {adj_words.dtype}")
     if x.dtype not in DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    adj_words, x = adj_words.contiguous(), x.contiguous()
     n, w = adj_words.shape
     d = x.shape[1]
     out = torch.empty((n, d), dtype=x.dtype, device=dev)

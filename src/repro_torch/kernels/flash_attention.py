@@ -134,8 +134,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``block_q`` / ``block_k`` must divide S / Skv once capped at them,
     as the reference asserts; the CUDA kernels pick their own tiles.
-    The route comes from :func:`plan`; the kernels take ``D <= 256`` and
-    raise past it. ``backend`` names this call's backend
+    The route comes from :func:`plan`; the kernels take ``D <= 256`` in
+    f32 or bf16 and raise past that. They read a strided input from a
+    contiguous copy. ``backend`` names this call's backend
     (``config.backend_for``).
     """
     _check_shapes(q, k, v, block_q, block_k)
@@ -148,8 +149,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} on {t.device}, expected {dev}")
         if t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     route = plan(q.shape, k.shape, q.dtype, _sm_count(dev.index or 0))
     b, h, s, d = q.shape
     h_kv, s_kv = k.shape[1], k.shape[2]

@@ -79,6 +79,12 @@ def flash_attention_op(q, k, v, causal: bool = True,
                        block_q: int = 128, block_k: int = 128
                        ) -> torch.Tensor:
     """Fused attention forward [B, H, S, D] (GQA-aware; causal mask
-    top-left aligned, as the reference's Pallas kernel has it)."""
+    top-left aligned, as the reference's Pallas kernel has it).
+
+    Card limits: the CUDA kernels take head sizes D <= 256
+    (``flash_attention.MAX_HEAD_DIM``) in float32 or bfloat16 only, and
+    raise for anything else (``flash_attention.plan`` names the limit);
+    the plain version takes any D and float dtype. The reference pads
+    any D to a multiple of 128 instead."""
     return flash_attention(q, k, v, causal=causal, block_q=block_q,
                            block_k=block_k, backend=backend)

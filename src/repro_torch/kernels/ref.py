@@ -149,6 +149,148 @@ def refine_bitmap_rows_hier_ref(summary: torch.Tensor,
     return out
 
 
+DENSE_TILE_WORDS = 160  # dense refine kernel: a tile, 32 lanes x 5 words
+DENSE_GROUP = 8         # dense refine kernel: positions gathered at once
+
+
+def refine_dense_schedule(n_words: int, row: int, n_active: int = 0,
+                          base: int = 0) -> dict:
+    """How the dense CUDA refine kernel splits row ``row`` of cand / out
+    (int32 [F, n_words] whose first word lies ``base`` words past a
+    16-byte boundary; the kernel reads it from the pointers), for a row
+    with ``n_active`` active positions:
+
+    * ``lead``: words from the 16-byte boundary before the row to the
+      row's first word (the kernel's tiles start on that grid);
+    * ``tiles``: the row word at each tile's first slot (tiles of
+      ``DENSE_TILE_WORDS``, negative for a row that starts off the grid);
+    * ``gather``: per tile, int64 [DENSE_TILE_WORDS], the row word that
+      slot ``lane + 32 j`` gathers from every position's adjacency row
+      (-1 off the row). Slot s holds word ``tile + s`` of the output too:
+      the gathered rows are not realigned (shift 0);
+    * ``head`` / ``tail``: the row words read and written one at a time,
+      before the first and after the last 16-byte boundary;
+    * ``body``: the first row word of each 16-byte unit read and written
+      whole;
+    * ``groups``: the positions (indices into the compacted list)
+      gathered together, ``DENSE_GROUP`` at a time.
+    """
+    lead = (base + row * n_words) % 4
+    tiles = list(range(-lead, n_words, DENSE_TILE_WORDS))
+    slots = torch.arange(DENSE_TILE_WORDS)
+    gather = [torch.where((t0 + slots >= 0) & (t0 + slots < n_words),
+                          t0 + slots, -1) for t0 in tiles]
+    head, body, tail = [], [], []
+    for t0 in tiles:
+        for w in range(t0, t0 + DENSE_TILE_WORDS, 4):
+            words = [x for x in range(w, w + 4) if 0 <= x < n_words]
+            if len(words) == 4:
+                body.append(w)
+            else:
+                (head if w < 0 else tail).extend(words)
+    groups = [list(range(g, min(g + DENSE_GROUP, n_active)))
+              for g in range(0, n_active, DENSE_GROUP)]
+    return {"lead": lead, "tiles": tiles, "gather": gather, "head": head,
+            "body": body, "tail": tail, "groups": groups}
+
+
+def refine_rows_by_schedule(adj_bitmap: torch.Tensor,
+                            cand_rows: torch.Tensor, frontier: torch.Tensor,
+                            active: torch.Tensor, base: int = 0
+                            ) -> torch.Tensor:
+    """:func:`refine_bitmap_rows_ref` computed the dense kernel's way, row
+    by row on :func:`refine_dense_schedule`: the active, clamped vertices
+    compacted in position order, each tile's slots ANDed over the groups
+    of positions, then each unit of the tile (head, body or tail words)
+    ANDed with cand into ``out``. A word the schedule misses stays 0."""
+    v, w = adj_bitmap.shape
+    out = torch.zeros_like(cand_rows)
+    for i in range(cand_rows.shape[0]):
+        act = (active[i] != 0) & (frontier[i] >= 0)
+        verts = frontier[i][act].clamp(max=v - 1).long()
+        sch = refine_dense_schedule(w, i, len(verts), base)
+        for t0, slots in zip(sch["tiles"], sch["gather"]):
+            acc = torch.full(slots.shape, -1, dtype=torch.int32)
+            for group in sch["groups"]:
+                for j in group:
+                    acc &= torch.where(slots >= 0,
+                                       adj_bitmap[verts[j]][slots.clamp(0)],
+                                       -1)
+            on = slots >= 0
+            out[i, slots[on]] = cand_rows[i, slots[on]] & acc[on]
+    return out
+
+
+def refine_hier_schedule(chunk_ptr: torch.Tensor, vertices: torch.Tensor,
+                         chunk_words: int) -> torch.Tensor:
+    """The hier CUDA refine kernel's walk of one row, as int64 [units, 3]:
+    flat unit i is (index into ``vertices``, stored chunk k (a row of
+    ``chunk_data``), first word of the unit in that chunk).
+
+    ``vertices`` are the row's active positions' vertices in position
+    order, those below V (a vertex past V - 1 has no stored chunk). Each
+    position's stored chunks ``chunk_ptr[v] .. chunk_ptr[v+1]`` follow
+    one another, positions in order (the prefix sum of their chunk
+    counts), and each chunk is cut into units of 4 words (C >= 4) or is
+    one unit (C of 1 or 2). The kernel's threads take units i, i + 256,
+    ... and read each unit's chunk id, then its chunk words if the chunk
+    is live.
+    """
+    c = int(chunk_words)
+    unit = min(c, 4)
+    vertices = vertices.long()
+    k0 = chunk_ptr[vertices].long()
+    nk = chunk_ptr[vertices + 1].long() - k0
+    pos = torch.repeat_interleave(torch.arange(len(vertices)), nk)
+    first = torch.cumsum(nk, 0) - nk
+    k = k0[pos] + torch.arange(len(pos)) - first[pos]
+    per = c // unit
+    return torch.stack([pos.repeat_interleave(per), k.repeat_interleave(per),
+                        torch.arange(0, c, unit).repeat(len(pos))], dim=1)
+
+
+def refine_rows_hier_by_schedule(summary: torch.Tensor,
+                                 chunk_ptr: torch.Tensor,
+                                 chunk_id: torch.Tensor,
+                                 chunk_data: torch.Tensor,
+                                 cand_rows: torch.Tensor,
+                                 frontier: torch.Tensor,
+                                 active: torch.Tensor) -> torch.Tensor:
+    """:func:`refine_bitmap_rows_hier_ref` computed the hier kernel's way,
+    row by row on :func:`refine_hier_schedule`: cand with the words of
+    chunks dead in the active positions' summary intersection zeroed (a
+    zero cand word needs no summary: it stays zero), then the chunk words
+    of every unit of the flat walk whose chunk is live ANDed in, one
+    walked position after another."""
+    v, sw = summary.shape
+    c = chunk_data.shape[1]
+    w = cand_rows.shape[1]
+    chunks = torch.arange(w) // c
+    unit = torch.arange(min(c, 4))
+    out = torch.zeros_like(cand_rows)
+    for i in range(cand_rows.shape[0]):
+        act = (active[i] != 0) & (frontier[i] >= 0)
+        rows = summary[frontier[i][act].clamp(max=v - 1).long()]
+        psum = _and_fold(rows[None])[0] if len(rows) else torch.full(
+            (sw,), -1, dtype=torch.int32)
+        live = (psum[chunks // 32] >> (chunks % 32)) & 1
+        row = cand_rows[i] & -live.to(torch.int32)
+        walk = refine_hier_schedule(chunk_ptr, frontier[i][act & (
+            frontier[i] < v)], c)
+        for p in range(int(walk[:, 0].max()) + 1 if len(walk) else 0):
+            mine = walk[walk[:, 0] == p]
+            ids = chunk_id[mine[:, 1]].long()
+            words = (ids * c + mine[:, 2])[:, None] + unit
+            data = chunk_data[mine[:, 1][:, None], mine[:, 2][:, None] + unit]
+            keep = (((psum[ids // 32] >> (ids % 32)) & 1) != 0)[:, None] \
+                & (words < w)
+            full = torch.full((w,), -1, dtype=torch.int32)
+            full[words[keep]] = data[keep]
+            row &= full
+        out[i] = row
+    return out
+
+
 SPMM_ROW_BLOCK = 4096   # rows unpacked at a time by bitmap_spmm_ref
 
 

@@ -127,6 +127,177 @@ def test_cuda_hier_refine_kernel_rejects_bad_inputs(cuda_device):
         refine(*lanes, kmax, cand, frontier.cpu(), active)
 
 
+def _active_rows(rng, v, f, np_, n_active):
+    """frontier / active with exactly ``n_active`` active positions a
+    row, among them -1 lanes (every third row) and vertices past V - 1
+    (odd rows)."""
+    frontier = rng.integers(0, v, (f, np_)).astype(np.int32)
+    active = np.zeros((f, np_), np.int32)
+    for i in range(f):
+        active[i, rng.choice(np_, n_active, replace=False)] = 1
+    if np_ > 1:
+        frontier[::3, 0] = -1
+        frontier[1::2, 1] = v + 5
+    return torch.from_numpy(frontier), torch.from_numpy(active)
+
+
+@pytest.mark.parametrize("n_active", [0, 1, 7, 8, 9, 64])
+@pytest.mark.parametrize("v,w", [(300, 147), (64, 3), (40, 8192)])
+def test_cuda_refine_kernel_positions_and_widths(cuda_device, v, w,
+                                                 n_active):
+    """0 to 64 active positions (one group of 8 gathers, two, eight), on
+    147-word rows (each row at another word offset of the 16-byte grid),
+    3-word rows and 8192-word rows (52 tiles)."""
+    rng = np.random.default_rng(v + n_active)
+    adj = torch.from_numpy(rng.integers(-2**31, 2**31, (v, w),
+                                        dtype=np.int64).astype(np.int32))
+    cand = torch.from_numpy(rng.integers(-2**31, 2**31, (9, w),
+                                         dtype=np.int64).astype(np.int32))
+    frontier, active = _active_rows(rng, v, 9, 64, n_active)
+    args = [t.to(cuda_device) for t in (adj, cand, frontier, active)]
+    got = bitmap_refine.refine_bitmap_rows(*args)
+    assert torch.equal(got, refine_bitmap_rows_ref(*args))
+
+
+@pytest.mark.parametrize("offset", range(4))
+def test_cuda_refine_kernel_at_each_alignment(cuda_device, offset):
+    """cand starting ``offset`` words past a 16-byte boundary: scalar
+    loads and stores (out is aligned, cand is not), the same bits; and
+    out and cand sharing that offset (both views): head, body and tail on
+    the offset grid."""
+    adj, cand, frontier, active = [t.to(cuda_device)
+                                   for t in _inputs(4674, 64, 64, 8)]
+    want = refine_bitmap_rows_ref(adj, cand, frontier, active)
+    buf = torch.empty(cand.numel() + 4, dtype=torch.int32,
+                      device=cuda_device)
+    view = buf[offset:offset + cand.numel()].view(cand.shape)
+    view.copy_(cand)
+    assert view.data_ptr() % 16 == 4 * offset
+    assert torch.equal(bitmap_refine.refine_bitmap_rows(
+        adj, view, frontier, active), want)
+    lib = bitmap_refine._library("refine_bitmap_rows")
+    out = torch.zeros_like(buf)
+    out_view = out[offset:offset + cand.numel()].view(cand.shape)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    assert lib.refine_bitmap_rows_launch(
+        adj.data_ptr(), view.data_ptr(), frontier.data_ptr(),
+        active.data_ptr(), out_view.data_ptr(), adj.shape[0], adj.shape[1],
+        cand.shape[0], frontier.shape[1], stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out_view, want)
+    assert not out[:offset].any() and not out[offset + cand.numel():].any()
+
+
+def _hier_layout(v, cw, seed, density=0.2):
+    rng = np.random.default_rng(seed)
+    dense = rng.random((v, v)) < density
+    dense |= dense.T
+    indptr = np.concatenate(([0], np.cumsum(dense.sum(axis=1))))
+    hb = build_hier_bitmap(v, indptr, np.nonzero(dense)[1], chunk_words=cw)
+    return hb, [torch.from_numpy(a) for a in (
+        hb.summary.view(np.int32), hb.chunk_ptr, hb.chunk_id,
+        hb.chunk_data.view(np.int32))]
+
+
+@pytest.mark.parametrize("n_active", [0, 1, 8, 9, 64])
+@pytest.mark.parametrize("v,cw", [(520, 4), (300, 1), (300, 2),
+                                  (1000, 128), (4096, 8)])
+def test_cuda_hier_refine_kernel_positions_and_chunks(cuda_device, v, cw,
+                                                      n_active):
+    """0 to 64 active positions (past-V and -1 lanes among them) at chunk
+    widths 1, 2, 4, 8 and 128 (wider than the row)."""
+    hb, lanes = _hier_layout(v, cw, v + cw)
+    rng = np.random.default_rng(n_active)
+    w = (v + 31) // 32
+    cand = torch.from_numpy(rng.integers(-2**31, 2**31, (33, w),
+                                         dtype=np.int64).astype(np.int32))
+    frontier, active = _active_rows(rng, v, 33, 64, n_active)
+    args = [t.to(cuda_device) for t in (*lanes, cand, frontier, active)]
+    got = bitmap_refine.refine_bitmap_rows_hier(*args[:4], hb.kmax,
+                                                *args[4:])
+    assert torch.equal(got, refine_bitmap_rows_hier_ref(
+        *args[:4], hb.kmax, *args[4:]))
+
+
+def test_cuda_hier_refine_kernel_all_dead_and_wide_rows(cuda_device):
+    """Rows whose summary intersection is all dead are zeros, and a
+    262144-vertex power-law graph (8192-word rows, a 32 KB shared row)
+    equals the plain version."""
+    from repro_torch.data.graph_gen import powerlaw_graph
+    hb, lanes = _hier_layout(520, 4, 7, density=0.004)
+    rng = np.random.default_rng(7)
+    n_chunks = 5
+    gaps = np.nonzero((hb.summary[:, 0] & 31) != 31)[0]
+    frontier = np.full((16, 4), -1, np.int32)
+    frontier[:, 0] = rng.choice(gaps, 16)
+    active = np.zeros((16, 4), np.int32)
+    active[:, 0] = 1
+    cand = np.zeros((16, 17), np.int32)
+    for i in range(0, 16, 2):
+        s = int(hb.summary[frontier[i, 0], 0])
+        dead = [c for c in range(n_chunks) if not (s >> c) & 1][0]
+        cand[i, 4 * dead:4 * dead + 4] = -1
+    args = [t.to(cuda_device) for t in (
+        *lanes, *map(torch.from_numpy, (cand, frontier, active)))]
+    got = bitmap_refine.refine_bitmap_rows_hier(*args[:4], hb.kmax,
+                                                *args[4:])
+    assert not got.any()
+    big = powerlaw_graph(262144, 3, 16, seed=0).hier_bitmap(8)
+    lanes = [torch.from_numpy(a).to(cuda_device) for a in (
+        big.summary.view(np.int32), big.chunk_ptr, big.chunk_id,
+        big.chunk_data.view(np.int32))]
+    rng = np.random.default_rng(8)
+    frontier, active = _active_rows(rng, 262144, 64, 64, 5)
+    frontier[::2, 2] = torch.from_numpy(rng.integers(0, 64, 32))  # hubs
+    active[::2, 2] = 1
+    cand = torch.from_numpy(rng.integers(-2**31, 2**31, (64, 8192),
+                                         dtype=np.int64).astype(np.int32))
+    rows = [t.to(cuda_device) for t in (cand, frontier, active)]
+    got = bitmap_refine.refine_bitmap_rows_hier(*lanes, big.kmax, *rows)
+    assert torch.equal(got, refine_bitmap_rows_hier_ref(*lanes, big.kmax,
+                                                        *rows))
+
+
+def test_cuda_refine_kernels_are_deterministic(cuda_device):
+    """Repeated calls give the same bits (the hier kernel ANDs with
+    shared-memory atomics, in an order that changes from run to run)."""
+    lanes, kmax, rows = _hier_inputs(4096, 512, 64, 8, 4)
+    args = [t.to(cuda_device) for t in (*lanes, *rows)]
+    first = bitmap_refine.refine_bitmap_rows_hier(*args[:4], kmax,
+                                                  *args[4:])
+    dense = [t.to(cuda_device) for t in _inputs(4674, 512, 64, 4)]
+    first_dense = bitmap_refine.refine_bitmap_rows(*dense)
+    for _ in range(3):
+        assert torch.equal(bitmap_refine.refine_bitmap_rows_hier(
+            *args[:4], kmax, *args[4:]), first)
+        assert torch.equal(bitmap_refine.refine_bitmap_rows(*dense),
+                           first_dense)
+
+
+def test_cuda_refine_kernels_take_strided_views(cuda_device):
+    """A strided (non-contiguous) input gives the bits of its contiguous
+    copy, on both refine kernels."""
+    adj, cand, frontier, active = [t.to(cuda_device)
+                                   for t in _inputs(520, 40, 12, 3)]
+    wide = torch.zeros((40, 2 * cand.shape[1]), dtype=torch.int32,
+                       device=cuda_device)
+    wide[:, ::2] = cand
+    views = [wide[:, ::2], frontier.t().contiguous().t()]
+    assert not any(t.is_contiguous() for t in views)
+    assert torch.equal(
+        bitmap_refine.refine_bitmap_rows(adj, views[0], views[1], active),
+        bitmap_refine.refine_bitmap_rows(adj, cand, frontier, active))
+    lanes, kmax, rows = _hier_inputs(520, 24, 9, 4, 2)
+    lanes = [t.to(cuda_device) for t in lanes]
+    cand, frontier, active = (t.to(cuda_device) for t in rows)
+    want = bitmap_refine.refine_bitmap_rows_hier(*lanes, kmax, cand,
+                                                 frontier, active)
+    views = [t.t().contiguous().t() for t in (lanes[3], cand)]
+    assert not any(t.is_contiguous() for t in views)
+    assert torch.equal(bitmap_refine.refine_bitmap_rows_hier(
+        *lanes[:3], views[0], kmax, views[1], frontier, active), want)
+
+
 def _spmm_inputs(n, w, d, density, seed, dtype):
     rng = np.random.default_rng(seed)
     dense = rng.random((n, 32 * w)) < density
@@ -228,6 +399,17 @@ def test_cuda_spmm_unaligned_views_change_no_bit(cuda_device, dtype):
     x_odd = xbuf[1:].view(x.shape)
     assert w_odd.data_ptr() % 16 and x_odd.data_ptr() % 8
     assert torch.equal(bitmap_spmm.bitmap_spmm(w_odd, x_odd), want)
+
+
+def test_cuda_spmm_kernel_takes_strided_views(cuda_device):
+    """Strided words and x give the bits of their contiguous copies."""
+    words, x = (t.to(cuda_device) for t in _spmm_inputs(
+        33, 3, 129, 0.3, 5, torch.float32))
+    want = bitmap_spmm.bitmap_spmm(words, x)
+    words_t = words.t().contiguous().t()
+    x_t = x.t().contiguous().t()
+    assert not words_t.is_contiguous() and not x_t.is_contiguous()
+    assert torch.equal(bitmap_spmm.bitmap_spmm(words_t, x_t), want)
 
 
 def test_cuda_spmm_routes_are_counted(cuda_device):
@@ -362,6 +544,19 @@ def test_cuda_flash_kernel_rejects_bad_inputs(cuda_device):
         flash_attention.flash_attention(q, k.cpu(), v)
     with pytest.raises(TypeError):
         flash_attention.flash_attention(q, k.bfloat16(), v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_kernel_takes_strided_views(cuda_device, dtype):
+    """q, k and v as [B, S, H, D] tensors seen as [B, H, S, D] (strided)
+    give the bits of their contiguous copies."""
+    q, k, v = (t.to(cuda_device) for t in _flash_inputs(
+        1, 4, 2, 64, 64, 64, 1, dtype))
+    want = flash_attention.flash_attention(q, k, v)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (q, k, v)]
+    assert not any(t.is_contiguous() for t in views)
+    assert torch.equal(flash_attention.flash_attention(*views), want)
 
 
 def test_cuda_per_call_torch_backend_runs_plain(cuda_device):

@@ -230,6 +230,20 @@ def test_plan_raises_where_no_route_goes():
         plan((1, 1, 1, 257), (1, 1, 64, 257), F32)
 
 
+@pytest.mark.parametrize("d,dtype,error,limit", [
+    (320, F32, ValueError, "head size 320 > 256"),
+    (320, BF16, ValueError, "head size 320 > 256"),
+    (64, torch.float16, TypeError, "float32 or bfloat16"),
+    (320, torch.float16, TypeError, "float32 or bfloat16")])
+def test_plan_names_the_card_limits(d, dtype, error, limit):
+    """The card limits ``ops.flash_attention_op`` states: D <= 256
+    (``MAX_HEAD_DIM``), float32 or bfloat16; past them ``plan`` raises
+    with a message that names the limit."""
+    assert flash_attention.MAX_HEAD_DIM == 256
+    with pytest.raises(error, match=limit):
+        plan((1, 4, 16, d), (1, 2, 16, d), dtype)
+
+
 def test_cpu_calls_count_no_route():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 1, 1, 300, 64, 9))
     before = dict(flash_attention.FLASH_ROUTES)
