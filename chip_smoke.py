@@ -72,7 +72,36 @@ Drives the port (``src/repro_torch``), never the JAX package:
     attention``), and for SpMM the bytes its gathers move through L2
     (nnz * D * element size); each case must take its route (SpMM
     human-like ``split``, Cora-shaped ``wide``, scale ``stream``; attention
-    decode ``split``, bf16 prefill ``tc``, f32 prefill ``fma``).
+    decode ``split``, bf16 prefill ``tc``, f32 prefill ``fma``);
+11. serves the first four human queries of step 3 through one
+    ``QueryServer`` under one ``FaultPlan``: a retried dispatch
+    exception, one that exhausts the retries and demotes its queries, a
+    dispatch hang, a corrupt and an overflowing digest aimed at one slot
+    each, a dropped pattern flush and a failed admission (the fourth
+    query's). Every spec must fire; the failed admission ends
+    ``error``; every other query ends ``ok`` or ``limit`` with valid,
+    distinct rows, as many as the oracle allows under the limit, and
+    step 3's set where step 3 finished under the limit; the demoted ones
+    carry ``stats.fallback``; the ``hangs``, ``quarantined``,
+    ``fallbacks``, ``flush_drops`` and ``admission_failures`` counters
+    are each at least 1, and the dense refine launched. Then a corrupt
+    digest aimed at slot 0 alone, beside a fault-free run of the same
+    batch (both with the deep schedule pinned, so the shared
+    adaptive-depth EMA cannot couple the slots): every other query's
+    rows and counters must be identical;
+12. drives ``DistributedMatcher`` on the card: (a) the two human queries
+    step 3 finished under the limit with the fewest rows, 4 shards and a
+    checkpoint directory, each equal to step 3's set; (b) the larger of
+    them losing a shard at its second wave (``micro_checkpoint_every=1``):
+    it must end on 3 shards with (a)'s set; (c) the same query cut by
+    ``max_rows`` at half (a)'s rows and resumed from its mid-run
+    checkpoint on 2 shards, equal to (a); (d) the scale query of step 3
+    with the fewest rows among those that found any, 4 shards: the hier
+    layout and kernel, and step 3's count of valid, distinct rows.
+
+Steps 11-12 print their seconds (together, ``faults-distributed``),
+refine launches (each part's count set to 0 just before it), fault
+counters and fired faults.
 
 Prints one ``[phase]`` info line per step (the ``done`` line gives the
 script's own seconds), then the kernel table as one JSON line, the
@@ -359,6 +388,31 @@ def emb_set(embs) -> set:
     return {tuple(int(x) for x in e) for e in embs}
 
 
+def refine_launches() -> dict:
+    from repro_torch.kernels import bitmap_refine
+    return {"dense": bitmap_refine.LAUNCHES,
+            "hier": bitmap_refine.HIER_LAUNCHES}
+
+
+def reset_refine_launches() -> None:
+    from repro_torch.kernels import bitmap_refine
+    bitmap_refine.LAUNCHES = 0
+    bitmap_refine.HIER_LAUNCHES = 0
+
+
+def check_rows(tag: str, query, data, embs, want_n: int,
+               want=None) -> None:
+    """Rows valid and distinct, ``want_n`` of them, and the set ``want``
+    when given."""
+    require(all(valid_embedding(e, query, data) for e in embs),
+            f"{tag}: invalid embedding row")
+    require(len(emb_set(embs)) == len(embs), f"{tag}: duplicate embedding")
+    require(len(embs) == want_n,
+            f"{tag}: {len(embs)} embeddings, expected {want_n}")
+    if want is not None:
+        require(emb_set(embs) == want, f"{tag}: embedding set differs")
+
+
 def serve(dev, wl, capture=None) -> dict:
     """Run the workloads through the port's QueryServer on ``dev``. Each
     kernel's launch count is set to 0 just before a workload and read
@@ -368,7 +422,6 @@ def serve(dev, wl, capture=None) -> dict:
     results and scheduler figures."""
     import torch
     from repro_torch.core import engine_step
-    from repro_torch.kernels import bitmap_refine
     from repro_torch.serving import QueryServer
 
     out = {}
@@ -379,8 +432,7 @@ def serve(dev, wl, capture=None) -> dict:
         if attr:
             setattr(engine_step, attr, wrap(real))
         try:
-            bitmap_refine.LAUNCHES = 0
-            bitmap_refine.HIER_LAUNCHES = 0
+            reset_refine_launches()
             t0 = time.perf_counter()
             if name == "corridor":
                 res = [srv.submit(i, q) for i, q in enumerate(queries)]
@@ -389,8 +441,7 @@ def serve(dev, wl, capture=None) -> dict:
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = {"dense": bitmap_refine.LAUNCHES,
-                        "hier": bitmap_refine.HIER_LAUNCHES}
+            launches = refine_launches()
         finally:
             if attr:
                 setattr(engine_step, attr, real)
@@ -433,13 +484,8 @@ def check_answers(run, wl) -> None:
         data, queries = wl[name]
         for i, (q, r) in enumerate(zip(queries, run[name]["results"])):
             require(r.status in ("ok", "limit"), f"{name} q{i}: {r.status}")
-            require(all(valid_embedding(e, q, data) for e in r.embeddings),
-                    f"{name} q{i}: invalid embedding row")
-            require(len(emb_set(r.embeddings)) == len(r.embeddings),
-                    f"{name} q{i}: duplicate embedding")
-            want = len(backtrack_deadend(q, data, limit=1000).embeddings)
-            require(len(r.embeddings) == want, f"{name} q{i}: "
-                    f"{len(r.embeddings)} embeddings, oracle {want}")
+            check_rows(f"{name} q{i}", q, data, r.embeddings, len(
+                backtrack_deadend(q, data, limit=1000).embeddings))
     for name in ("trap", "corridor", "wedge"):
         data, queries = wl[name]
         oracle = emb_set(backtrack_deadend(queries[0], data,
@@ -1163,6 +1209,248 @@ def time_ops(spmm, flash) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phases 11/12: the fault-tolerant runtime and the distributed matcher
+# ----------------------------------------------------------------------
+N_FAULT_QUERIES = 4          # phase 11 serves the first 4 human queries
+
+
+def fault_specs() -> list:
+    """Phase 11's plan: a retried dispatch exception, one that exhausts
+    the retries, a hang, a corrupt and an overflowing digest aimed at one
+    slot each, a dropped flush and a failed admission (the last query's)."""
+    from repro_torch.api import MatchOptions
+    from repro_torch.core.faults import FaultSpec
+    retries = MatchOptions().dispatch_retries
+    return [FaultSpec("dispatch", "exception", at=2),
+            FaultSpec("dispatch", "exception", at=6, times=retries + 1),
+            FaultSpec("dispatch", "hang", at=12),
+            FaultSpec("digest", "corrupt", at=1, slot=0),
+            FaultSpec("digest", "overflow", at=3, slot=1),
+            FaultSpec("flush", "exception", at=1),
+            FaultSpec("admission", "exception", at=N_FAULT_QUERIES)]
+
+
+def serve_faulted(dev, data, queries, specs, **knobs) -> tuple:
+    """One QueryServer on the card under ``FaultPlan(specs)``; returns
+    the results, the plan, the fault counters and the refine launches
+    (set to 0 just before)."""
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.serving import QueryServer
+    plan = FaultPlan(specs)
+    srv = QueryServer(data, backend="engine", device=dev, faults=plan,
+                      **knobs)
+    reset_refine_launches()
+    res = srv.submit_batch(queries)
+    return (res, plan, srv.scheduler.scheduler_stats()["faults"],
+            refine_launches())
+
+
+def fired(plan) -> list:
+    return [[site, kind, n] for site, kind, n, _ in plan.fired]
+
+
+def fault_phase(dev, wl, base: list, want_n: list) -> dict:
+    """Phase 11: the first four human queries under one plan holding
+    every dispatch, digest, flush and admission fault (see
+    ``fault_specs``), then a slot-aimed corrupt digest alone beside a
+    fault-free run of the same batch. ``base`` are phase 3's results of
+    these queries, ``want_n`` their oracle counts (limit 1000)."""
+    import torch
+    from repro_torch.core.faults import FaultSpec
+    data, queries = wl["human"]
+    queries = queries[:N_FAULT_QUERIES]
+    t0 = time.perf_counter()
+    specs = fault_specs()
+    res, plan, counters, launches = serve_faulted(dev, data, queries,
+                                                  specs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = {(site, kind, n) for site, kind, n, _ in plan.fired}
+    for spec in specs:
+        for n in range(spec.at, spec.at + spec.times):
+            require((spec.site, spec.kind, n) in got,
+                    f"faults: {spec} did not fire at crossing {n}")
+    require(res[-1].status == "error",
+            f"faults: the failed admission ended {res[-1].status}")
+    for i, r in enumerate(res[:-1]):
+        require(r.status in ("ok", "limit"), f"faults q{i}: {r.status}")
+        check_rows(f"faults q{i}", queries[i], data, r.embeddings,
+                   want_n[i], emb_set(base[i].embeddings)
+                   if base[i].status == "ok" else None)
+    demoted = sum(bool(r.stats.fallback) for r in res)
+    require(1 <= demoted <= counters["fallbacks"],
+            f"faults: {demoted} results on the degraded path, "
+            f"{counters['fallbacks']} demotions")
+    for k in ("hangs", "quarantined", "fallbacks", "flush_drops",
+              "admission_failures"):
+        require(counters[k] >= 1, f"faults: counter {k} is 0")
+    require(launches["dense"] > 0, "faults: the dense refine never "
+            "launched")
+    out = {"seconds": seconds, "launches": launches, "faults": counters,
+           "fired": fired(plan), "statuses": [r.status for r in res],
+           "fallback": [bool(r.stats.fallback) for r in res]}
+    info("faults", **out)
+
+    # a corrupt digest aimed at slot 0 alone: every other query of the
+    # batch must come out as in a fault-free run, rows and counters. The
+    # adaptive-depth prune EMA is one per scheduler, so the quarantined
+    # slot's zeroed lanes and its replay would move every slot's depth
+    # choice (and with it the counters of queries cut at the limit):
+    # both runs pin the deep schedule to keep the slots apart
+    t0 = time.perf_counter()
+    pinned = {"adaptive_prune_threshold": 1.0}
+    clean, _, clean_counters, _ = serve_faulted(dev, data, queries, [],
+                                                **pinned)
+    hit, plan, counters, launches = serve_faulted(
+        dev, data, queries, [FaultSpec("digest", "corrupt", at=1, slot=0)],
+        **pinned)
+    torch.cuda.synchronize()
+    require(not any(clean_counters.values()),
+            f"faults: fault counters {clean_counters} without a plan")
+    require(counters["digest_failures"] == 1
+            and counters["quarantined"] == 1,
+            f"faults: slot-aimed corrupt digest gave {counters}")
+    keys = ("deadend_prunes", "rows_created", "patterns_stored",
+            "injectivity_fails")
+    untouched = [i for i, r in enumerate(hit) if not r.stats.fallback]
+    require(len(untouched) == len(queries) - 1,
+            "faults: the corrupt digest demoted more than its slot")
+    for i, r in enumerate(hit):
+        require(r.status == clean[i].status, f"faults q{i}: {r.status} "
+                f"against {clean[i].status} without faults")
+        check_rows(f"faults q{i} (slot-aimed)", queries[i], data,
+                   r.embeddings, want_n[i])
+    for i in untouched:
+        require(sorted(emb_set(hit[i].embeddings))
+                == sorted(emb_set(clean[i].embeddings)),
+                f"faults q{i}: a neighbour's rows changed")
+        for k in keys:
+            require(getattr(hit[i].stats, k) == getattr(clean[i].stats, k),
+                    f"faults q{i}: a neighbour's {k} changed")
+    blast = {"seconds": time.perf_counter() - t0, "launches": launches,
+             "faults": counters, "fired": fired(plan),
+             "untouched": untouched,
+             "rows_created": {"fault_free": [r.stats.rows_created
+                                             for r in clean],
+                              "faulted": [r.stats.rows_created
+                                          for r in hit]}}
+    info("faults-slot", **blast)
+    return {**out, "slot_aimed": blast}
+
+
+def distributed_phase(dev, wl, base_human: list, base_scale: list) -> dict:
+    """Phase 12: ``DistributedMatcher`` on the card. (a) two human
+    queries that phase 3 finished under the limit, 4 shards, with a
+    checkpoint directory; (b) the larger of them losing a shard at its
+    second wave, micro-checkpointed every wave; (c) the same query cut
+    by ``max_rows`` and resumed from its checkpoint on 2 shards; (d) one
+    scale query (hier layout and kernel). Each part's refine launches are
+    set to 0 just before it."""
+    import torch
+    from repro_torch.core.distributed import DistributedMatcher
+    from repro_torch.core.faults import FaultPlan, FaultSpec
+    human, hq = wl["human"]
+    scale, sq = wl["scale"]
+    done = sorted((i for i, r in enumerate(base_human)
+                   if r.status == "ok" and r.embeddings),
+                  key=lambda i: base_human[i].stats.rows_created)[:2]
+    require(len(done) == 2, "distributed: phase 3 finished fewer than two "
+            "human queries under the limit")
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        sets, rows = {}, {}
+        t0 = time.perf_counter()
+        reset_refine_launches()
+        for i in done:
+            m = DistributedMatcher(human, n_shards=4, device=dev)
+            r = m.match(hq[i], limit=1000, checkpoint_dir=str(tmp / f"a{i}"))
+            want = emb_set(base_human[i].embeddings)
+            check_rows(f"distributed (a) q{i}", hq[i], human, r.embeddings,
+                       len(want), want)
+            require(DistributedMatcher.load_state(str(tmp / f"a{i}"))
+                    is not None, f"distributed (a) q{i}: no checkpoint")
+            sets[i], rows[i] = want, r.stats.rows_created
+        torch.cuda.synchronize()
+        out["a"] = {"queries": done, "rows": [rows[i] for i in done],
+                    "found": [len(sets[i]) for i in done],
+                    "seconds": time.perf_counter() - t0,
+                    "launches": refine_launches()}
+        info("distributed-a", **out["a"])
+        j = done[-1]
+
+        t0 = time.perf_counter()
+        reset_refine_launches()
+        plan = FaultPlan([FaultSpec("shard", "shard_loss", at=2)])
+        m = DistributedMatcher(human, n_shards=4, micro_checkpoint_every=1,
+                               faults=plan, device=dev)
+        r = m.match(hq[j], limit=1000, checkpoint_dir=str(tmp / "b"))
+        torch.cuda.synchronize()
+        require(m.n_shards == 3, f"distributed (b): {m.n_shards} shards "
+                "after a shard loss")
+        check_rows(f"distributed (b) q{j}", hq[j], human, r.embeddings,
+                   len(sets[j]), sets[j])
+        out["b"] = {"query": j, "n_shards": m.n_shards,
+                    "fired": fired(plan),
+                    "faults": m.scheduler.scheduler_stats()["faults"],
+                    "seconds": time.perf_counter() - t0,
+                    "launches": refine_launches()}
+        info("distributed-b", **out["b"])
+
+        t0 = time.perf_counter()
+        reset_refine_launches()
+        cut = max(1, rows[j] // 2)
+        m = DistributedMatcher(human, n_shards=4, checkpoint_every_waves=2,
+                               device=dev)
+        part = m.match(hq[j], limit=1000, checkpoint_dir=str(tmp / "c"),
+                       max_rows=cut)
+        require(part.stats.aborted and part.stats.abort_reason == "rows",
+                "distributed (c): the run was not cut by max_rows")
+        ck = DistributedMatcher.load_state(str(tmp / "c"))
+        require(ck is not None and len(ck.pending_roots) > 0,
+                "distributed (c): no mid-run checkpoint")
+        m2 = DistributedMatcher(human, n_shards=2, device=dev)
+        r = m2.match(hq[j], limit=1000, checkpoint_dir=str(tmp / "c"),
+                     resume=True)
+        torch.cuda.synchronize()
+        check_rows(f"distributed (c) q{j}", hq[j], human, r.embeddings,
+                   len(sets[j]), sets[j])
+        out["c"] = {"query": j, "max_rows": cut,
+                    "cut_found": len(part.embeddings),
+                    "pending_roots": len(ck.pending_roots),
+                    "phi_floor": ck.phi_floor,
+                    "seconds": time.perf_counter() - t0,
+                    "launches": refine_launches()}
+        info("distributed-c", **out["c"])
+
+    k = min((i for i, r in enumerate(base_scale) if r.embeddings),
+            key=lambda i: base_scale[i].stats.rows_created)
+    t0 = time.perf_counter()
+    reset_refine_launches()
+    m = DistributedMatcher(scale, n_shards=4, device=dev)
+    r = m.match(sq[k], limit=1000)
+    torch.cuda.synchronize()
+    launches = refine_launches()
+    variant = m.scheduler.adjacency_variant
+    require(variant == "hier-hbm", f"distributed (d): layout {variant}")
+    require(launches["hier"] > 0 and launches["dense"] == 0,
+            f"distributed (d): refine launches {launches}")
+    base = base_scale[k]
+    check_rows(f"distributed (d) q{k}", sq[k], scale, r.embeddings,
+               len(base.embeddings), emb_set(base.embeddings)
+               if base.status == "ok" else None)
+    out["d"] = {"query": k, "variant": variant, "found": len(r.embeddings),
+                "rows": r.stats.rows_created,
+                "seconds": time.perf_counter() - t0, "launches": launches}
+    info("distributed-d", **out["d"])
+    info("distributed", seconds=sum(v["seconds"] for v in out.values()),
+         launches={k: sum(v["launches"][k] for v in out.values())
+                   for k in ("dense", "hier")},
+         faults=out["b"]["faults"], fired=out["b"]["fired"])
+    return out
+
+
+# ----------------------------------------------------------------------
 def warm_up(dev, wl) -> None:
     """CUDA context and first launches of both kernels' paths, outside
     every counted run."""
@@ -1311,6 +1599,16 @@ def main() -> int:
     del op_run
     op_timing = time_ops(spmm, flash)
     ops_seconds = time.perf_counter() - t_ops
+    del spmm, flash
+    torch.cuda.empty_cache()
+    t_ft = time.perf_counter()
+    base_human = run_k["human"]["results"]
+    fault_phase(dev, wl, base_human[:N_FAULT_QUERIES],
+                [len(r.embeddings) for r in base_human[:N_FAULT_QUERIES]])
+    distributed_phase(dev, wl, base_human, run_k["scale"]["results"])
+    ft_seconds = time.perf_counter() - t_ft
+    info("faults-distributed", seconds=ft_seconds,
+         within_120_s=ft_seconds <= 120)
     rows = [kernel_row("refine_bitmap_rows",
                        "src/repro_torch/kernels/csrc/bitmap_refine.cu",
                        "src/repro/kernels/bitmap_refine.py:100",
@@ -1333,7 +1631,7 @@ def main() -> int:
                        op_timing["a prefill bf16"])]
     seconds = time.perf_counter() - t_start
     info("done", seconds=seconds, ops_seconds=ops_seconds,
-         within_600_s=seconds <= 600)
+         faults_distributed_seconds=ft_seconds, within_600_s=seconds <= 600)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

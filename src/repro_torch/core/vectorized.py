@@ -23,11 +23,30 @@ reference: the dense packed block below 16384 data-graph vertices
 (``"dense-vmem"`` in ``scheduler_stats()``), the two-level layout of
 ``core.graph.HierBitmap`` at or above it (``"hier-hbm"``), unless
 ``hier_adjacency`` pins one; every refine then goes through the dense or
-the hierarchical kernel. One part of the reference is not ported yet and
-raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: fault
-injection with dispatch retry / quarantine / host fallback (``faults``,
-``dispatch_timeout_s``). A dispatch exception propagates out of
-``step()``; a digest that fails validation raises.
+the hierarchical kernel.
+
+Fault tolerance (DESIGN.md §8) is the reference's: a ``FaultPlan``
+(``core.faults``) pokes the dispatch, digest, flush and admission
+boundaries; a failing dispatch is retried with backoff, then its queries
+are quarantined and the banks rebuilt on ``self.device``; a hung or
+late dispatch (``dispatch_timeout_s``) and a digest that fails
+validation quarantine the queries they involve. A quarantined query is
+replayed from its request on the host-scheduled programs (``host_only``:
+host segments, one work item per wave) on the same device, so its
+refines still launch the kernel, deduplicating against the embeddings it
+had already found; past ``max_query_failures`` (or with
+``fallback_on_failure=False``) it ends with status ``"error"``.
+
+Where this departs from the reference: only ``core.faults.
+DISPATCH_ERRORS`` is caught (any other runtime error, a CUDA fault among
+them, propagates out of ``step()``); a dispatch here updates the banks
+in place and runs to its end inside the call, so a real
+``torch.OutOfMemoryError`` rebuilds the Δ bank before a host-megastep
+retry and quarantines at once on the device-stack path, and the
+watchdog reads a dispatch's own seconds (the call plus its digest
+read); a stack-bank rebuild quarantines every device query, not only
+the failed dispatch's (one admitted while it was in flight would lose
+its frontier); and ``step()`` counts queued replays as progress.
 """
 from __future__ import annotations
 
@@ -46,6 +65,7 @@ from ..patterns import (DeadEndStats, PatternCache, PatternStore,
                         PatternStoreBank, age_hits, empty_entries,
                         entries_to_store, store_to_entries)
 from .backtrack import MatchResult, _prepare
+from .faults import DISPATCH_ERRORS, FaultInjected, corrupt_digest
 from .engine_step import (N_PAD, STK_FREE, STK_FRESH, STK_LEFT, STK_RES,
                           STK_WAIT, DeviceResult, GraphArrays, MegaResult,
                           QueryBank, StackBank, assemble_children_mq,
@@ -65,12 +85,6 @@ __all__ = ["WaveScheduler", "WaveEngine", "EngineStats", "QueueFull",
 
 class QueueFull(RuntimeError):
     """Raised when the bounded admission queue rejects a submission."""
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet "
-        f"(ROADMAP.md, still to port: {item})")
 
 
 # per-slot scalar lanes of a DeviceResult digest
@@ -120,6 +134,16 @@ class _Request:
     parallelism: int = 1
     priority: int = 0
     on_embeddings: object | None = None
+    # degraded-mode replay (DESIGN.md §8): a quarantined query is
+    # re-admitted as a fresh request on the host-scheduled path,
+    # carrying the embeddings it already found (deduplicated on replay)
+    # and its failure count
+    host_only: bool = False
+    fail_count: int = 0
+    prior_embeddings: list | None = None   # [n_query] int32 rows
+    emb_seen: set | None = None            # tobytes() of every prior row
+    prior_rows: int = 0                    # rows_created before demotion
+    prior_ttfe: float | None = None
 
 
 @dataclasses.dataclass
@@ -133,6 +157,8 @@ class _Inflight:
     us: np.ndarray | None = None   # host-side child assembly
     ph: np.ndarray | None = None
     depth_v: np.ndarray | None = None
+    busy_s: float = 0.0            # the dispatch call's own seconds
+    hung: bool = False             # injected hang: digest untrusted
 
 
 @dataclasses.dataclass
@@ -142,6 +168,8 @@ class _InflightDev:
     slot_map: dict                 # slot -> QueryState at dispatch time
     root_slots: tuple              # slots whose root batch rode along
     t_max: int
+    busy_s: float = 0.0            # the dispatch call's own seconds
+    hung: bool = False             # injected hang: digest untrusted
 
 
 class WaveScheduler:
@@ -164,9 +192,6 @@ class WaveScheduler:
         self.device = resolve_device(device)
         self.options = opts
         self.data = data
-        if opts.faults is not None or opts.dispatch_timeout_s is not None:
-            raise _unported("fault injection / dispatch watchdog",
-                            "faults, retry, quarantine and host fallback")
         tuned, self.tuning_record = opts.resolved_engine(
             backend=None, n_vertices=data.n)
         self.n_slots = tuned["n_slots"]
@@ -286,9 +311,20 @@ class WaveScheduler:
         # loop iterations plus single-step fresh waves) and the loop
         # conditions read back to the host
         self.timing = {"iterations": 0, "readbacks": 0, "readback_s": 0.0}
+        # fault tolerance (DESIGN.md §8): every hook is gated on its
+        # knob (or ``_faults is None``)
+        self.dispatch_timeout_s = opts.dispatch_timeout_s
+        self.dispatch_retries = int(opts.dispatch_retries)
+        self.retry_backoff_s = float(opts.retry_backoff_s)
         self.validate_digests = bool(opts.validate_digests)
+        self.fallback_on_failure = bool(opts.fallback_on_failure)
+        self.max_query_failures = int(opts.max_query_failures)
         self.shed_policy = opts.shed_policy
-        self.n_shed = 0
+        self._faults = opts.faults          # core.faults.FaultPlan | None
+        self.fault_counters = {
+            "dispatch_retries": 0, "hangs": 0, "digest_failures": 0,
+            "quarantined": 0, "fallbacks": 0, "errors": 0,
+            "flush_drops": 0, "shed": 0, "admission_failures": 0}
 
     # ------------------------------------------------------------------
     # submission / admission
@@ -369,7 +405,7 @@ class WaveScheduler:
         stats.wall_time_s = time.perf_counter() - req.t_submit
         self.finished[req.query_id] = MatchResult([], stats)
         self._fresh_done.append(req.query_id)
-        self.n_shed += 1
+        self.fault_counters["shed"] += 1
 
     def _finish_trivial(self, req: _Request) -> None:
         stats = EngineStats()
@@ -399,6 +435,12 @@ class WaveScheduler:
                                          else empty_entries())
         self._fresh_done.append(req.query_id)
 
+    def reserve_phi_floor(self, floor: int) -> None:
+        """Raise the pool's embedding-id counter to at least ``floor``,
+        so seeded μ > 0 patterns (written under another scheduler's φ
+        numbering, e.g. a checkpoint) can never match a fresh id."""
+        self.pool.id_counter = max(self.pool.id_counter, int(floor))
+
     def _pop_admission(self) -> _Request:
         """Highest priority first, FIFO within a tie."""
         best = max(range(len(self.queue)),
@@ -415,6 +457,11 @@ class WaveScheduler:
             if slot is None:
                 break
             req = self._pop_admission()
+            if self._faults is not None and self._faults.poke(
+                    "admission", query_id=req.query_id) is not None:
+                self.fault_counters["admission_failures"] += 1
+                self._fail_request(req, "injected admission fault")
+                continue
             learn = req.learn and self.pool.learning_enabled
             # Δ seed priority: explicit entries > template-cache warm
             # start (μ == 0 only) > empty store
@@ -448,7 +495,24 @@ class WaveScheduler:
                            parallelism=req.parallelism)
             q.fingerprint = req.fingerprint
             q.emb_sink = req.on_embeddings
+            # the request stays with the query so a quarantine can
+            # replay it on the degraded path
             q.request = req
+            q.fail_count = req.fail_count
+            q.force_single = req.host_only
+            if req.prior_embeddings:
+                # degraded-mode replay: carry the embeddings found
+                # before demotion; the replay deduplicates against
+                # ``emb_seen`` so re-enumeration cannot double-count
+                q.embeddings.extend(req.prior_embeddings)
+                q.emb_delivered = len(req.prior_embeddings)  # streamed
+                q.stats.found = len(req.prior_embeddings)
+                q.stats.ttfe_s = req.prior_ttfe
+            if req.host_only:
+                q.emb_seen = (req.emb_seen if req.emb_seen is not None
+                              else set())
+                q.stats.rows_created += req.prior_rows
+                q.stats.fallback = True
             q.stats.table_stats = DeadEndStats(
                 capacity=self.pattern_capacity)
             if warm:
@@ -465,7 +529,7 @@ class WaveScheduler:
                         q.hit_counts[(int(p), int(v))] = int(h)
             q.stats.rows_created += len(req.roots)
             if (self._use_device and q.parallelism == 1
-                    and not req.keep_table):
+                    and not req.keep_table and not req.host_only):
                 # device-resident stack path: roots trickle onto the
                 # device stack as it has headroom (the cursor advances
                 # by the digest's per-slot accept count)
@@ -639,6 +703,149 @@ class WaveScheduler:
                 return True
         return False
 
+    # ------------------------------------------------------------------
+    # fault tolerance: retry, quarantine, degraded-mode replay
+    # (DESIGN.md §8)
+    # ------------------------------------------------------------------
+    def _fail_request(self, req: _Request, msg: str) -> None:
+        """Finish a request that failed before (or at) admission with
+        ``status="error"``; embeddings carried from a prior incarnation
+        are kept."""
+        stats = EngineStats()
+        stats.aborted = True
+        stats.abort_reason = "error"
+        stats.fault = msg
+        stats.table_stats = None
+        stats.found = len(req.prior_embeddings or ())
+        stats.wall_time_s = time.perf_counter() - req.t_submit
+        self.finished[req.query_id] = MatchResult(
+            list(req.prior_embeddings or ()), stats)
+        self._fresh_done.append(req.query_id)
+        self.fault_counters["errors"] += 1
+
+    def _run_dispatch(self, call, queries: list, stacks: bool):
+        """Run one device dispatch with bounded retry and exponential
+        backoff. Returns ``(result, hung, seconds)``; ``result is None``
+        means the dispatch failed for good — the involved ``queries``
+        were quarantined and the banks rebuilt (``stacks=True`` the
+        frontier StackBank too). An injected hang runs the dispatch but
+        flags its digest untrusted for the retire-side watchdog.
+
+        An injected exception fires before the call, so its retry
+        starts from untouched banks. A real ``torch.OutOfMemoryError``
+        may strike after the call began updating the banks in place:
+        a device-stack dispatch then fails for good at once (its
+        queries replay on the degraded path), and a host megastep
+        retries on a rebuilt Δ bank (sound: patterns only prune, and
+        the host segments are not touched by the call). Nothing else is
+        caught."""
+        attempt = 0
+        while True:
+            hung = False
+            try:
+                if self._faults is not None:
+                    spec = self._faults.poke("dispatch")
+                    if spec is not None:
+                        if spec.kind == "hang":
+                            self.fault_counters["hangs"] += 1
+                            hung = True
+                        else:
+                            raise FaultInjected(
+                                "injected dispatch exception")
+                t0 = time.perf_counter()
+                res = call()
+                return res, hung, time.perf_counter() - t0
+            except DISPATCH_ERRORS as exc:
+                attempt += 1
+                torn = not isinstance(exc, FaultInjected)
+                if attempt > self.dispatch_retries or (torn and stacks):
+                    self._dispatch_failed(queries, exc, stacks)
+                    return None, False, 0.0
+                if torn:
+                    self._invalidate_device_state(stacks=False)
+                self.fault_counters["dispatch_retries"] += 1
+                time.sleep(self.retry_backoff_s * (2 ** (attempt - 1)))
+
+    def _dispatch_failed(self, queries: list, exc: BaseException,
+                         stacks: bool) -> None:
+        msg = (f"dispatch failed after {self.dispatch_retries + 1} "
+               f"attempts: {exc}")
+        self._watchdog_fire({q.slot: q for q in queries}, msg, stacks)
+
+    def _invalidate_device_state(self, stacks: bool) -> None:
+        """Rebuild the banks on ``self.device`` after a hang, a failed
+        dispatch or a globally invalid digest. Sound: Δ patterns only
+        prune, and every query whose frontier lived in the stack bank
+        is quarantined by the caller."""
+        self.tb = PatternStoreBank.empty(self.n_slots,
+                                         self.pattern_capacity, self.device)
+        self._flush_ctr_dev = None
+        self._pending_snaps.clear()
+        if stacks and self._use_device:
+            self.sb = StackBank.empty(self.n_slots, self.stack_capacity,
+                                      self.w, self.device)
+
+    def _watchdog_fire(self, slot_map: dict, msg: str,
+                       stacks: bool) -> None:
+        """A hung, failed or untrusted dispatch retires cleanly instead
+        of blocking all slots: rebuild the banks and quarantine every
+        involved query. A rebuilt stack bank also drops the frontier of
+        any device query the dispatch did not carry (one admitted while
+        it was in flight), so those are quarantined too."""
+        self._invalidate_device_state(stacks)
+        involved = list(slot_map.values())
+        if stacks:
+            seen = {id(q) for q in involved}
+            involved += [q for q in self._device_queries()
+                         if id(q) not in seen]
+        for q in involved:
+            if q.active:
+                self._quarantine(q, msg)
+
+    def _quarantine(self, q: QueryState, reason: str) -> None:
+        """resident → quarantined → replay on the degraded path, or —
+        past the per-query failure budget (or with fallback disabled) —
+        status "error" through the abort/eviction path."""
+        self.fault_counters["quarantined"] += 1
+        q.fail_count += 1
+        req = q.request
+        if (self.fallback_on_failure and req is not None
+                and q.fail_count <= self.max_query_failures):
+            self.fault_counters["fallbacks"] += 1
+            self._demote_to_host(q, req)
+        else:
+            self.fault_counters["errors"] += 1
+            q.stats.fault = reason
+            self._abort(q, "error")
+
+    def _demote_to_host(self, q: QueryState, req: _Request) -> None:
+        """Tear the query down without publishing a result and re-enqueue
+        its request on the host-scheduled path (``host_only``: host
+        segments, one item per wave, same device). Embeddings found so
+        far ride along and the replay deduplicates against them, so the
+        final set is exact; neighbours are untouched."""
+        seen = set()
+        prior = []
+        for e in q.embeddings:
+            b = np.asarray(e, np.int32)
+            key = b.tobytes()
+            if key not in seen:
+                seen.add(key)
+                prior.append(b)
+        req2 = dataclasses.replace(
+            req, host_only=True, fail_count=q.fail_count,
+            prior_embeddings=prior, emb_seen=seen,
+            prior_rows=q.stats.rows_created, prior_ttfe=q.stats.ttfe_s,
+            seed_patterns=None, on_embeddings=q.emb_sink)
+        q.status = "quarantined"    # in-flight digests for this slot drop
+        q.evict()
+        if q.device and self.sb is not None:
+            clear_slot_stack(self.sb, q.slot)
+        self.pool.release(q.slot)
+        # internal re-admission: past the max_queue bound (the query
+        # already held a slot), ahead of its priority tie
+        self.queue.appendleft(req2)
+
     def _validate_device_digest(self, dig: dict, n_emb: int,
                                 embS: np.ndarray, embF: np.ndarray,
                                 slot_map: dict) -> tuple[dict, bool]:
@@ -681,19 +888,32 @@ class WaveScheduler:
     def _fold_embeddings(self, q: QueryState, rows: np.ndarray
                          ) -> np.ndarray:
         """Fold a ``[k, >= q.n]`` batch of found rows into the query:
-        permute to query-vertex order, apply the limit, stream. Returns
-        a bool mask of the rows that count as *reported* (rows clipped
-        by the limit stay unmarked; the caller aborts right after)."""
+        permute to query-vertex order, deduplicate against a replay's
+        carried set, apply the limit, stream. Returns a bool mask of the
+        rows that count as *reported* (duplicates included, so a
+        successful row is never resolved as a failure; rows clipped by
+        the limit stay unmarked — the caller aborts right after)."""
         k = len(rows)
         out = np.empty((k, q.n), np.int32)
         out[:, q.order[:q.n]] = rows[:, :q.n]
-        take = k
+        if q.emb_seen is None:
+            accept = np.ones(k, bool)
+        else:
+            accept = np.fromiter(
+                (r.tobytes() not in q.emb_seen for r in out),
+                bool, count=k)
+        take = int(accept.sum())
         if q.limit is not None:
             take = min(take, q.limit - q.stats.found)
         report = np.ones(k, bool)
-        report[max(0, take):] = False
+        idx = np.nonzero(accept)[0]
+        report[idx[max(0, take):]] = False
         if take > 0:
-            q.embeddings.extend(out[:take])
+            idx = idx[:take]
+            if q.emb_seen is not None:
+                for i in idx:
+                    q.emb_seen.add(out[i].tobytes())
+            q.embeddings.extend(out[idx])
             q.stats.found += take
             self._deliver(q)
         return report
@@ -902,6 +1122,13 @@ class WaveScheduler:
             self.t_flush_s += time.perf_counter() - t0
             return
         dedup = self._drain_dedup(bufs, None)
+        if self._faults is not None and dedup and self._faults.poke(
+                "flush", n=len(dedup)) is not None:
+            # injected flush failure: drop the batch — sound, patterns
+            # only ever prune
+            self.fault_counters["flush_drops"] += 1
+            self.t_flush_s += time.perf_counter() - t0
+            return
         n_pad = 16
         while n_pad < len(dedup):
             n_pad *= 2
@@ -929,6 +1156,11 @@ class WaveScheduler:
                 buf.clear()
             bufs = []
         dedup = self._drain_dedup(bufs, self.store_pad)
+        if self._faults is not None and dedup and self._faults.poke(
+                "flush", n=len(dedup)) is not None:
+            # injected flush failure: drop the pattern batch (sound)
+            self.fault_counters["flush_drops"] += 1
+            dedup = {}
         out = self._pack_store_batch(dedup, self.store_pad)
         self.t_flush_s += time.perf_counter() - t0
         return out
@@ -987,8 +1219,10 @@ class WaveScheduler:
             progressed = prev is not None or rec is not None
         if prev_dev is not None:
             self._retire_device(prev_dev)
+        # a dispatch that failed for good leaves its queries' replays
+        # queued: that is progress too
         return (progressed or retired_dev or prev_dev is not None
-                or rec_dev is not None)
+                or rec_dev is not None or bool(self.queue))
 
     def _retire_host(self, rec: _Inflight) -> None:
         if rec.kind == "mega":
@@ -1048,20 +1282,41 @@ class WaveScheduler:
         id_base = self.pool.alloc_ids(t_max * f * self._mega_kpr)
         self._reset_learning_on_overflow()
         dev = self.device
-        res = run_device_megastep(
-            self.g, self.qb, self.tb, self.sb, _i32(in_root, dev),
-            _i32(in_rid, dev), _i32(in_slot, dev), _i32(in_valid, dev),
-            _i32(active, dev), id_base, bool(self.pool.learning_enabled),
-            t_max, kpr=self._mega_kpr, emb_cap=self._emb_cap,
-            wave=self.wave_size, timing=self.timing)
+        args = [_i32(a, dev) for a in (in_root, in_rid, in_slot, in_valid,
+                                       active)]
+        res, hung, busy = self._run_dispatch(
+            lambda: run_device_megastep(
+                self.g, self.qb, self.tb, self.sb, *args, id_base,
+                bool(self.pool.learning_enabled), t_max,
+                kpr=self._mega_kpr, emb_cap=self._emb_cap,
+                wave=self.wave_size, timing=self.timing),
+            devq, stacks=True)
+        if res is None:
+            return None             # failed for good: queries quarantined
         self.n_dispatches += 1
         return _InflightDev(res, {q.slot: q for q in devq},
-                            tuple(root_slots), t_max)
+                            tuple(root_slots), t_max, busy_s=busy,
+                            hung=hung)
+
+    def _late(self, rec, t_read: float) -> str | None:
+        """Per-dispatch watchdog: why the dispatch (its call plus its
+        digest read) is untrusted, or None within ``dispatch_timeout_s``."""
+        if (self.dispatch_timeout_s is None
+                or rec.busy_s + t_read <= self.dispatch_timeout_s):
+            return None
+        return ("dispatch exceeded watchdog deadline "
+                f"({self.dispatch_timeout_s:g}s)")
 
     def _retire_device(self, rec: _InflightDev) -> None:
         """Fold one digest: per-slot scalars into query stats, the
         embedding batch out to the owning queries, then completion /
         budget / wedge checks."""
+        if rec.hung:
+            # injected hang: neither the digest nor the banks it updated
+            # are trusted — don't even read it
+            self._watchdog_fire(rec.slot_map, "injected dispatch hang",
+                                stacks=True)
+            return
         res = rec.res
         t0 = time.perf_counter()
         # one device->host copy for every per-slot lane and the count
@@ -1076,13 +1331,45 @@ class WaveScheduler:
         embS = _np(res.emb_slot[:n_emb])
         t1 = time.perf_counter()
         self.t_sync_s += t1 - t0
+        late = self._late(rec, t1 - t0)
+        if late is not None:
+            self.fault_counters["hangs"] += 1
+            self._watchdog_fire(rec.slot_map, late, stacks=True)
+            return
+        if self._faults is not None:
+            slots = sorted(s for s, q in rec.slot_map.items()
+                           if q.active and q.device)
+            spec = (self._faults.poke("digest", slots=slots)
+                    if slots else None)
+            if spec is not None:
+                corrupt_digest(dig, spec,
+                               stack_capacity=self.stack_capacity,
+                               slots=slots)
         if self.validate_digests:
             bad, global_bad = self._validate_device_digest(
                 dig, n_emb_raw, embS, embF, rec.slot_map)
-            if global_bad or bad:
-                raise RuntimeError(
-                    "device digest failed validation: "
-                    + ("global" if global_bad else repr(bad)))
+            if global_bad:
+                self.fault_counters["digest_failures"] += 1
+                self._watchdog_fire(rec.slot_map,
+                                    "device digest globally invalid",
+                                    stacks=True)
+                return
+            if bad:
+                # quarantine each failing slot's query and zero its
+                # lanes and rows, so the folds below stay clean —
+                # neighbours' lanes and embedding rows are untouched
+                for slot, why in bad.items():
+                    self.fault_counters["digest_failures"] += 1
+                    q = rec.slot_map[slot]
+                    for k in _DEV_LANES:
+                        dig[k][slot] = 0
+                    if q.active:
+                        self._quarantine(
+                            q, f"digest validation failed: {why}")
+                if len(embS):
+                    keep = ~np.isin(embS, list(bad))
+                    embF, embS = embF[keep], embS[keep]
+                n_emb = len(embS)
         d_accepted = dig["d_accepted"]
         d_expanded = dig["d_expanded"]
         d_rows = dig["d_rows"]
@@ -1251,22 +1538,32 @@ class WaveScheduler:
         id_base = self.pool.alloc_ids(self._ring_capacity - self.wave_size)
         self._reset_learning_on_overflow()
         dev = self.device
-        res = run_megastep_mq(
-            self.g, self.qb, self.tb, _i32(fr, dev), _i32(us, dev),
-            _i32(ph, dev), _i32(valid, dev), _i32(slot_v, dev),
-            _i32(depth_v, dev), *st, id_base,
-            bool(self.pool.learning_enabled), kpr=self._mega_kpr,
-            k_depth=self.megastep_depth, capacity=self._ring_capacity,
-            emb_cap=self._emb_cap, timing=self.timing)
+        args = [_i32(a, dev) for a in (fr, us, ph, valid, slot_v, depth_v)]
+        picked = list({q.slot: q for q, *_ in metas}.values())
+        res, hung, busy = self._run_dispatch(
+            lambda: run_megastep_mq(
+                self.g, self.qb, self.tb, *args, *st, id_base,
+                bool(self.pool.learning_enabled), kpr=self._mega_kpr,
+                k_depth=self.megastep_depth, capacity=self._ring_capacity,
+                emb_cap=self._emb_cap, timing=self.timing),
+            picked, stacks=False)
+        if res is None:
+            return None             # failed for good: queries demoted
         self.n_dispatches += 1
-        for q in {q.slot: q for q, *_ in metas}.values():
+        for q in picked:
             q.stats.waves += 1
         # slot map over ALL dispatch-time owners: the drained store batch
         # carries buffered patterns from every active query
         slot_map = {q.slot: q for q in self.pool.active_queries()}
-        return _Inflight("mega", res, metas, slot_map)
+        return _Inflight("mega", res, metas, slot_map, busy_s=busy,
+                         hung=hung)
 
     def _retire_mega(self, rec: _Inflight) -> None:
+        picked = {q.slot: q for q, *_ in rec.metas}
+        if rec.hung:
+            self._watchdog_fire(picked, "injected dispatch hang",
+                                stacks=False)
+            return
         res: MegaResult = rec.res
         t0 = time.perf_counter()
         head = int(res.head)
@@ -1294,12 +1591,21 @@ class WaveScheduler:
         embS = _np(res.emb_slot[:max(0, n_emb)])
         t1 = time.perf_counter()
         self.t_sync_s += t1 - t0
+        late = self._late(rec, t1 - t0)
+        if late is not None:
+            self.fault_counters["hangs"] += 1
+            self._watchdog_fire(picked, late, stacks=False)
+            return
         if self.validate_digests and not (
                 0 <= head <= tail <= self._ring_capacity
                 and 0 <= n_emb <= self._emb_cap):
-            raise RuntimeError(
-                f"megastep digest globally invalid (head={head} "
-                f"tail={tail} n_emb={n_emb})")
+            # the ring digest has no per-slot blame: an out-of-bounds
+            # head/tail invalidates the whole dispatch
+            self.fault_counters["digest_failures"] += 1
+            self._watchdog_fire(
+                picked, f"megastep digest globally invalid (head={head} "
+                f"tail={tail} n_emb={n_emb})", stacks=False)
+            return
         r0, f0 = self.t_retire_s, self.t_flush_s
 
         self._fold_store_counters(
@@ -1734,7 +2040,8 @@ class WaveScheduler:
                 if self.n_slots else 0.0),
             "warm_started": self.warm_started,
             "warm_patterns_seeded": self.warm_patterns_seeded,
-            "shed": self.n_shed,
+            # fault-tolerance counters (DESIGN.md §8)
+            "faults": dict(self.fault_counters),
             "tuning": dict(self.tuning_record),
             "pattern_cache": (self.pattern_cache.report()
                               if self.pattern_cache is not None else None),

@@ -93,13 +93,6 @@ def _assert_same_as_reference(data, queries, jres, tres):
             assert getattr(b.stats, k) == getattr(a.stats, k), (i, k)
 
 
-@pytest.mark.parametrize("knobs", [{"dispatch_timeout_s": 1.0}])
-def test_unported_engine_paths_raise(knobs):
-    data, _ = _workload("uniform")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MatchSession(data, device="cpu", **{**KNOBS, **knobs})
-
-
 def test_default_device_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
