@@ -24,7 +24,10 @@ Drives the port (``src/repro_torch``), never the JAX package:
    power-law graph (limit 1000), which takes the hierarchical adjacency
    layout and its kernel. Every answer is checked against the sequential
    oracle, and each kernel's launch count, set to 0 before each workload
-   and read after it, against that workload's megastep iterations;
+   and read after it, against that workload's megastep iterations; every
+   workload must resolve the built-in knobs (tuning ``source ==
+   "builtin"``: no tuning record is committed, and a stray
+   ``TUNING_CACHE_TORCH.json`` fails the run rather than move them);
 4. serves the same workloads with the plain refines on the card and
    requires identical embeddings and per-query counters. This run goes
    in a second process, started right after the build: both runs are
@@ -99,9 +102,38 @@ Drives the port (``src/repro_torch``), never the JAX package:
     with the fewest rows among those that found any, 4 shards: the hier
     layout and kernel, and step 3's count of valid, distinct rows.
 
+13. runs the port's autotuner (``repro_torch.tuning.autotune``, smoke
+    domains, backend ``cuda``, 2 trials a point) at the serving smoke
+    shape (128 vertices, 8 four-vertex queries) into a temporary cache
+    file: the six points must give one embedding digest; a knob-free
+    ``WaveScheduler`` on that graph, pointed at the file
+    (``REPRO_TORCH_TUNING_CACHE``), must resolve ``source ==
+    "tuning-cache"`` under the key ``cuda/<device kind>/v128``, take the
+    record's knobs and give the tuner's digest. Prints every point's
+    qps, ``refine_microbench_ms``, the dense refine launches of the
+    sweep, and ``TunableSpace("cuda", ...)``'s dense and hier verdicts at
+    4674, 65536 and 262144 vertices (the evidence for the dense/hier
+    threshold);
+14. starts ``python -m repro_torch.server.launch`` on the card over the
+    scale graph (two tenants, ``alpha`` weight 2 and ``beta`` weight 1,
+    default engine knobs, ``--time-budget-s 600``, a default per-query
+    limit of 10 for its warmup ladder) and streams, each request asking
+    for limit 1000, over the
+    port's ``ServeClient`` and concurrently across the tenants, the 8
+    scale queries step 3 ran with the fewest rows: each query step 3
+    finished under the limit must stream step 3's set, each cut at the
+    limit 1000 valid, distinct rows; TTFE must be below latency;
+    ``/slo`` and ``/metrics`` must answer, the engine's tuning (from
+    ``/metrics``) must be the built-in knobs; the hier refine's launches
+    for the streamed queries (the difference of two ``/metrics``
+    snapshots) must be positive and the dense refine's 0; SIGTERM must
+    drain the server to exit code 0. Prints the READY line's
+    ``warmup_s`` and ``baseline_qps``, wire qps, p50 / p99 latency and
+    TTFE, rows and chunks streamed, and the launches.
+
 Steps 11-12 print their seconds (together, ``faults-distributed``),
 refine launches (each part's count set to 0 just before it), fault
-counters and fired faults.
+counters and fired faults; steps 13-14 theirs (``tuner-server``).
 
 Prints one ``[phase]`` info line per step (the ``done`` line gives the
 script's own seconds), then the kernel table as one JSON line, the
@@ -446,7 +478,13 @@ def serve(dev, wl, capture=None) -> dict:
             if attr:
                 setattr(engine_step, attr, real)
         sched = srv.scheduler
+        # no tuning record is committed: every serving run keeps the
+        # built-in knobs (a stray TUNING_CACHE_TORCH.json would move them)
+        require(sched.tuning_record["source"] == "builtin",
+                f"{name}: knobs from the tuning record "
+                f"{sched.tuning_record['record']}, expected the built-ins")
         out[name] = {"results": res, "wall_s": wall,
+                     "tuning": sched.tuning_record["source"],
                      "slo": srv.slo_report(), "launches": launches,
                      "variant": sched.adjacency_variant,
                      "iterations": sched.timing["iterations"],
@@ -543,7 +581,8 @@ def run_summary(run) -> dict:
             "readback_share": w["readback_s"] / w["wall_s"],
             "found": sum(len(r.embeddings) for r in w["results"]),
             "prunes": sum(r.stats.deadend_prunes for r in w["results"]),
-            "launches": w["launches"], "variant": w["variant"]}
+            "launches": w["launches"], "variant": w["variant"],
+            "tuning": w["tuning"]}
         if name == "scale":
             out[name]["adjacency_bytes"] = slo["adjacency_bytes"]
             out[name]["chunk_words"] = slo["chunk_words"]
@@ -1451,6 +1490,276 @@ def distributed_phase(dev, wl, base_human: list, base_scale: list) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phases 13/14: the tuner and the network server
+# ----------------------------------------------------------------------
+THRESHOLD_SHAPES = (4674, 65536, 262144)   # human-like, scale, phase 2
+N_SERVED = 8                 # phase 14 streams the 8 cheapest scale queries
+# The server's default per-query limit, which its warmup ladder (39
+# four-vertex queries) runs at: at limit 1000 the ladder takes ~4300
+# megastep iterations on the scale graph (minutes), at 10 about 150. The
+# streamed queries ask for phase 3's limit (1000) in their options.
+WARMUP_LIMIT = 10
+SERVER_TENANTS = {"alpha": {"weight": 2}, "beta": {"weight": 1}}
+
+
+def tuner_phase(dev) -> dict:
+    """Phase 13: the autotuner at the smoke shape on ``dev`` into a
+    temporary cache file (one digest across its points, or it refuses
+    to write), a knob-free scheduler resolving that record, and the
+    space's dense / hier verdicts at the serving shapes."""
+    import os
+    import torch
+    from repro_torch.api import MatchOptions
+    from repro_torch.api.options import ENGINE_TUNABLE_DEFAULTS
+    from repro_torch.core.vectorized import WaveScheduler
+    from repro_torch.kernels.config import device_backend
+    from repro_torch.tuning import device_kind
+    from repro_torch.tuning.autotune import autotune
+    from repro_torch.tuning.measure import (SMOKE_SHAPE, _embeddings_digest,
+                                            smoke_workload)
+    from repro_torch.tuning.space import (CandidateConfig, TunableSpace,
+                                          WorkloadShape,
+                                          dense_adjacency_bytes,
+                                          hier_refine_smem_bytes)
+    backend = device_backend(dev)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "TUNING_CACHE_TORCH.json")
+        reset_refine_launches()
+        try:
+            rep = autotune(smoke=True, trials=2, cache_path=path,
+                           device=dev)
+        except RuntimeError as exc:
+            raise SmokeFailure(f"tuner: {exc}") from exc
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = refine_launches()
+        prev = os.environ.get("REPRO_TORCH_TUNING_CACHE")
+        os.environ["REPRO_TORCH_TUNING_CACHE"] = path
+        try:
+            s = SMOKE_SHAPE
+            data, queries = smoke_workload()
+            sched = WaveScheduler(data, options=MatchOptions(
+                limit=s["limit"], time_budget_s=s["time_budget_s"],
+                kpr=s["kpr"]), device=dev)
+            for q in queries:
+                sched.submit(q)
+            digest = _embeddings_digest(sched.run())
+            tuning = sched.scheduler_stats()["tuning"]
+        finally:
+            if prev is None:
+                os.environ.pop("REPRO_TORCH_TUNING_CACHE")
+            else:
+                os.environ["REPRO_TORCH_TUNING_CACHE"] = prev
+    want_key = f"{backend}/{device_kind(dev)}/v{s['n_vertices']}"
+    require(rep["backend"] == backend,
+            f"tuner: tuned backend {rep['backend']}, the device's {backend}")
+    require(rep.get("record") == want_key,
+            f"tuner: wrote {rep.get('record')}, expected {want_key}")
+    require(launches["dense"] > 0 and launches["hier"] == 0,
+            f"tuner: refine launches {launches}")
+    require(tuning["source"] == "tuning-cache"
+            and tuning["key"] == want_key and tuning["record"] == want_key,
+            f"tuner: the knob-free scheduler resolved {tuning}")
+    best = rep["best"]["params"]
+    require(all(tuning["params"][k] == best[k]
+                for k in ENGINE_TUNABLE_DEFAULTS),
+            f"tuner: resolved {tuning['params']} against the record {best}")
+    require(digest == rep["digest"],
+            "tuner: the knob-free scheduler's embeddings differ from the "
+            "tuner's")
+    verdicts = {}
+    for v in THRESHOLD_SHAPES:
+        shape = WorkloadShape.for_graph(v)
+        space = TunableSpace(backend, shape)
+        verdicts[v] = {
+            "dense_bytes": dense_adjacency_bytes(shape),
+            "dense": space.validate(CandidateConfig()) or "admissible",
+            "hier_smem_bytes": hier_refine_smem_bytes(shape, 8),
+            "hier": (space.validate(CandidateConfig(hbm_adjacency=1))
+                     or "admissible")}
+    out = {"seconds": time.perf_counter() - t0, "record": want_key,
+           "digest": rep["digest"], "launches": launches,
+           "points": [{"megastep_depth": m["params"]["megastep_depth"],
+                       "pattern_capacity": m["params"]["pattern_capacity"],
+                       "qps": m["qps"],
+                       "store_load_factor": m["store_load_factor"]}
+                      for m in rep["measured"]],
+           "best": rep["best"], "default_qps": rep["default_qps"],
+           "refine_microbench_ms": rep["refine_microbench_ms"],
+           "rejected": rep["n_rejected"],
+           "smem_limit_bytes": space.smem_limit_bytes,
+           "dense_budget_bytes": space.dense_budget_bytes,
+           "verdicts": verdicts}
+    info("tuner", **out)
+    return out
+
+
+def wait_ready(proc, err_path: str, timeout_s: float) -> dict:
+    """The server's READY line, or a failure naming what it printed."""
+    import select
+    deadline = time.monotonic() + timeout_s
+    while True:
+        left = deadline - time.monotonic()
+        if proc.poll() is not None or left <= 0:
+            proc.kill()
+            proc.wait()
+            tail = Path(err_path).read_text()[-2000:]
+            raise SmokeFailure(f"server: no READY line (exit code "
+                               f"{proc.returncode}): {tail}")
+        if select.select([proc.stdout], [], [], min(left, 1.0))[0]:
+            line = proc.stdout.readline()
+            if line.startswith("REPRO_SERVER_READY "):
+                return json.loads(line.split(" ", 1)[1])
+
+
+def stream_one(cli, query, tenant: str, i: int) -> dict:
+    """One streamed query: its rows, statuses and client-side times."""
+    t0 = time.perf_counter()
+    rows, first, chunks, res = [], None, 0, None
+    for ev in cli.stream(query, tenant=tenant, request_id=i,
+                         options={"limit": 1000}):
+        if ev["event"] == "chunk":
+            if first is None and ev["rows"]:
+                first = time.perf_counter() - t0
+            rows.extend(ev["rows"])
+            chunks += 1
+        elif ev["event"] == "done":
+            res = ev["result"]
+        elif ev["event"] == "error":
+            raise SmokeFailure(f"server q{i}: {ev['code']}: "
+                               f"{ev['message']}")
+    return {"rows": rows, "chunks": chunks, "result": res,
+            "ttfe_s": first, "latency_s": time.perf_counter() - t0}
+
+
+def server_phase(dev, wl, base_scale: list) -> dict:
+    """Phase 14: ``python -m repro_torch.server.launch`` on ``dev`` over
+    the scale graph with two tenants; the 8 scale queries phase 3 ran
+    with the fewest rows, streamed concurrently over ``ServeClient``;
+    ``/slo`` and ``/metrics``; the hier launches of the streamed queries
+    (the difference of two ``/metrics`` snapshots); a SIGTERM drain."""
+    import os
+    import signal
+    import threading
+    import numpy as np
+    from repro_torch.kernels.config import device_backend
+    from repro_torch.server.client import ServeClient
+    scale, sq = wl["scale"]
+    picks = sorted(range(len(base_scale)),
+                   key=lambda i: base_scale[i].stats.rows_created)[:N_SERVED]
+    t0 = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT / "src"), env.get("PYTHONPATH")) if p)
+    cmd = [sys.executable, "-m", "repro_torch.server.launch",
+           "--device", dev.type, "--graph", "powerlaw",
+           "--graph-n", str(scale.n), "--graph-m", "3",
+           "--graph-labels", "16", "--graph-seed", "0", "--port", "0",
+           "--time-budget-s", "600", "--limit", str(WARMUP_LIMIT),
+           "--quiet",
+           "--tenants", json.dumps(SERVER_TENANTS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        err_path = str(Path(tmp) / "server.err")
+        with open(err_path, "w") as err:
+            proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                                    stdout=subprocess.PIPE, stderr=err)
+        try:
+            ready = wait_ready(proc, err_path, 300)
+            t_ready = time.perf_counter() - t0
+            require(ready["n_vertices"] == scale.n,
+                    f"server: serves {ready['n_vertices']} vertices")
+            cli = ServeClient(ready["host"], ready["port"], timeout=600)
+            before = cli.metrics()["kernel_launches"]
+            out: list = [None] * len(picks)
+            errors: list = []
+
+            def drive(j, i):
+                try:
+                    out[j] = stream_one(cli, sq[i], "alpha" if j % 2 == 0
+                                        else "beta", i)
+                except Exception as exc:        # reported below
+                    errors.append(f"q{i}: {exc!r}")
+
+            t_wire = time.perf_counter()
+            threads = [threading.Thread(target=drive, args=(j, i))
+                       for j, i in enumerate(picks)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wire_s = time.perf_counter() - t_wire
+            require(not errors and all(not t.is_alive() for t in threads),
+                    f"server: streams failed: {errors}")
+            after = cli.metrics()
+            # /slo serves the engine thread's snapshot, refreshed every
+            # 0.25 s: wait until it holds the streamed queries
+            deadline = time.monotonic() + 30
+            while (slo := cli.slo()).get("n", 0) < len(picks) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.1)
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+        err_text = Path(err_path).read_text()
+    require(rc == 0, f"server: SIGTERM drain exited {rc}: {err_text[-2000:]}")
+    require("REPRO_SERVER_SLO " in err_text,
+            "server: no final SLO report after the drain")
+    launches = {k: after["kernel_launches"][k] - before[k] for k in before}
+    require(launches["refine_bitmap_rows_hier"] > 0
+            and launches["refine_bitmap_rows"] == 0,
+            f"server: refine launches {launches}")
+    for j, i in enumerate(picks):
+        r, base = out[j], base_scale[i]
+        res = r["result"]
+        require(res is not None and res["status"] in ("ok", "limit"),
+                f"server q{i}: {res and res['status']}")
+        require(res["status"] == base.status,
+                f"server q{i}: {res['status']}, phase 3 {base.status}")
+        check_rows(f"server q{i}", sq[i], scale, r["rows"],
+                   len(base.embeddings), emb_set(base.embeddings)
+                   if base.status == "ok" else None)
+        if r["rows"]:
+            require(res["ttfe_ms"] is not None
+                    and res["ttfe_ms"] < res["latency_ms"],
+                    f"server q{i}: TTFE {res['ttfe_ms']} ms, latency "
+                    f"{res['latency_ms']} ms")
+    require(slo.get("n", 0) >= len(picks) and "p50_ms" in slo,
+            f"server: /slo holds {slo.get('n')} queries: {sorted(slo)}")
+    require(after["wire"]["completed"] >= len(picks),
+            f"server: /metrics wire {after['wire']}")
+    tuning = after["engine"]["tuning"]
+    require(tuning["source"] == "builtin"
+            and tuning["backend"] == device_backend(dev),
+            f"server: engine knobs resolved {tuning}, expected the "
+            f"built-ins of backend {device_backend(dev)}")
+    lat = np.array([r["latency_s"] for r in out]) * 1e3
+    ttfe = np.array([r["ttfe_s"] for r in out if r["ttfe_s"] is not None]
+                    ) * 1e3
+    res = {"seconds": time.perf_counter() - t0, "ready_s": t_ready,
+           "warmup_s": ready["warmup_s"],
+           "baseline_qps": ready["baseline_qps"], "queries": picks,
+           "wire_s": wire_s, "wire_qps": len(picks) / wire_s,
+           "client_p50_ms": float(np.percentile(lat, 50)),
+           "client_p99_ms": float(np.percentile(lat, 99)),
+           "client_ttfe_p50_ms": (float(np.percentile(ttfe, 50))
+                                  if len(ttfe) else None),
+           "server_p50_ms": slo["p50_ms"], "server_p99_ms": slo["p99_ms"],
+           "server_ttfe_p50_ms": slo.get("ttfe_p50_ms"),
+           "rows": sum(len(r["rows"]) for r in out),
+           "chunks": sum(r["chunks"] for r in out),
+           "statuses": [r["result"]["status"] for r in out],
+           "launches": launches, "tuning": tuning["source"],
+           "drain_rc": rc}
+    info("server", **res)
+    return res
+
+
+# ----------------------------------------------------------------------
 def warm_up(dev, wl) -> None:
     """CUDA context and first launches of both kernels' paths, outside
     every counted run."""
@@ -1609,6 +1918,11 @@ def main() -> int:
     ft_seconds = time.perf_counter() - t_ft
     info("faults-distributed", seconds=ft_seconds,
          within_120_s=ft_seconds <= 120)
+    t_ts = time.perf_counter()
+    tuner_phase(dev)
+    server_phase(dev, wl, run_k["scale"]["results"])
+    ts_seconds = time.perf_counter() - t_ts
+    info("tuner-server", seconds=ts_seconds, within_120_s=ts_seconds <= 120)
     rows = [kernel_row("refine_bitmap_rows",
                        "src/repro_torch/kernels/csrc/bitmap_refine.cu",
                        "src/repro/kernels/bitmap_refine.py:100",
@@ -1631,7 +1945,8 @@ def main() -> int:
                        op_timing["a prefill bf16"])]
     seconds = time.perf_counter() - t_start
     info("done", seconds=seconds, ops_seconds=ops_seconds,
-         faults_distributed_seconds=ft_seconds, within_600_s=seconds <= 600)
+         faults_distributed_seconds=ft_seconds,
+         tuner_server_seconds=ts_seconds, within_600_s=seconds <= 600)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

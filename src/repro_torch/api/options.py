@@ -206,21 +206,23 @@ class MatchOptions:
         return opts.validate()
 
     def resolved_engine(self, *, backend: str | None = None,
-                        n_vertices: int | None = None
+                        n_vertices: int | None = None, device=None
                         ) -> tuple[dict, dict]:
         """Concrete engine knobs + the tuning record that supplied them.
 
-        Fills every tunable knob the caller left ``None`` through the
-        port's resolver (``tuning/resolve.py``, which has no tuning
-        cache yet), i.e. from ``ENGINE_TUNABLE_DEFAULTS``. Explicit
-        values on this options object always win. Returns
-        ``(knobs, record)`` where ``knobs`` maps every
-        ENGINE_TUNABLE_DEFAULTS key (plus ``block_f``, the refine-kernel
-        row-block height) to an int and ``record`` is a JSON-safe
-        descriptor (``source`` = "builtin")."""
+        Fills every tunable knob the caller left ``None`` from the
+        port's tuning cache (``tuning/resolve.py``: keyed by backend /
+        device kind / quantized data-graph size), falling back to
+        ``ENGINE_TUNABLE_DEFAULTS``. Explicit values on this options
+        object always win over the cache. ``backend`` None means the
+        backend of ``device``'s kernels. Returns ``(knobs, record)``
+        where ``knobs`` maps every ENGINE_TUNABLE_DEFAULTS key (plus
+        ``block_f``, the refine row-block height) to an int and
+        ``record`` is a JSON-safe descriptor naming the consumed tuning
+        record (``source`` = "tuning-cache" | "builtin")."""
         from ..tuning.resolve import resolve_engine_options
         return resolve_engine_options(self, backend=backend,
-                                      n_vertices=n_vertices)
+                                      n_vertices=n_vertices, device=device)
 
 
 @dataclasses.dataclass

@@ -59,8 +59,9 @@ import numpy as np
 import torch
 
 from ..api.options import MatchOptions
-from ..kernels.config import (kernel_chunk_words, kernel_dma_depth,
-                              resolve_device, use_hbm_adjacency)
+from ..kernels.config import (device_backend, kernel_chunk_words,
+                              kernel_dma_depth, resolve_device,
+                              use_hbm_adjacency)
 from ..patterns import (DeadEndStats, PatternCache, PatternStore,
                         PatternStoreBank, age_hits, empty_entries,
                         entries_to_store, store_to_entries)
@@ -192,8 +193,14 @@ class WaveScheduler:
         self.device = resolve_device(device)
         self.options = opts
         self.data = data
+        # tuning resolution: every tunable knob the caller left None
+        # fills from the tuning cache record keyed by the backend this
+        # device's kernels take, the device kind and |V|, else the
+        # built-in default. Explicit values win.
+        self._kernel_backend = device_backend(self.device)
         tuned, self.tuning_record = opts.resolved_engine(
-            backend=None, n_vertices=data.n)
+            backend=self._kernel_backend, n_vertices=data.n,
+            device=self.device)
         self.n_slots = tuned["n_slots"]
         self.wave_size = tuned["wave_size"]
         self.kpr = int(opts.kpr)
@@ -227,20 +234,22 @@ class WaveScheduler:
         self._ring_capacity = 2 * self.wave_size * (self._mega_kpr + 1)
         self._emb_cap = 2 * self.wave_size * self._mega_kpr
         self.w = (data.n + 31) // 32
-        # adjacency layout: the options pin wins, else the size
-        # threshold decides. The hierarchical layout never materialises
-        # the dense [V, W] block (537 MB at 64K vertices).
+        # adjacency layout: the options pin wins, else kernels.config
+        # (scope override > tuning record > the size threshold) decides.
+        # The hierarchical layout never materialises the dense [V, W]
+        # block (537 MB at 64K vertices).
+        kb, dev = self._kernel_backend, self.device
         use_hier = (bool(opts.hier_adjacency)
                     if opts.hier_adjacency is not None
-                    else use_hbm_adjacency(data.n))
+                    else use_hbm_adjacency(kb, data.n, dev))
         if use_hier:
             cw = (int(opts.chunk_words) if opts.chunk_words is not None
-                  else kernel_chunk_words(data.n))
+                  else kernel_chunk_words(kb, data.n, dev))
             # accepted for parity with the reference; the kernel does
             # not read it
             self.dma_depth = (int(opts.dma_depth)
                               if opts.dma_depth is not None
-                              else kernel_dma_depth(data.n))
+                              else kernel_dma_depth(kb, data.n, dev))
             hb = data.hier_bitmap(chunk_words=cw)
             self.chunk_words = cw
             self.g = GraphArrays(

@@ -51,6 +51,25 @@ def _checked(name: str, t: torch.Tensor, device: torch.device,
     return t.contiguous()
 
 
+def hier_smem_bytes(n_words: int, n_summary: int) -> int:
+    """Dynamic shared memory (bytes) the hierarchical kernel takes for a
+    row of ``n_words`` words with ``n_summary`` summary words: the row
+    in 16-byte units and the positions' summary intersection
+    (``csrc/bitmap_refine_hier.cu``)."""
+    return 4 * (4 * -(-n_words // 4) + n_summary)
+
+
+def hier_max_smem() -> int:
+    """This card's opt-in shared-memory limit (bytes) for the
+    hierarchical kernel; builds its library if need be."""
+    limit = _library("refine_bitmap_rows_hier"
+                     ).refine_bitmap_rows_hier_max_smem()
+    if limit < 0:
+        raise RuntimeError(f"refine_bitmap_rows_hier: CUDA error {-limit} "
+                           "reading the shared-memory limit")
+    return limit
+
+
 def refine_bitmap_rows(adj_bitmap: torch.Tensor, cand_rows: torch.Tensor,
                        frontier: torch.Tensor, active: torch.Tensor,
                        backend: str | None = None) -> torch.Tensor:
@@ -146,13 +165,9 @@ def refine_bitmap_rows_hier(summary: torch.Tensor, chunk_ptr: torch.Tensor,
     if f == 0 or w == 0:
         return out
     lib = _library("refine_bitmap_rows_hier")
-    smem = 4 * (4 * -(-w // 4) + sw)    # the row in 16-byte units and the
-                                        # positions' summary intersection
+    smem = hier_smem_bytes(w, sw)
     if smem > 48 * 1024:
-        limit = lib.refine_bitmap_rows_hier_max_smem()
-        if limit < 0:
-            raise RuntimeError(f"refine_bitmap_rows_hier: CUDA error "
-                               f"{-limit} reading the shared-memory limit")
+        limit = hier_max_smem()
         if smem > limit:
             raise ValueError(
                 f"refine_bitmap_rows_hier keeps a row of W = {w} words and "

@@ -571,3 +571,51 @@ def test_cuda_per_call_torch_backend_runs_plain(cuda_device):
     ops.bitmap_spmm_op(words, x)
     torch.cuda.synchronize()
     assert bitmap_spmm.SPMM_LAUNCHES == before + 1
+
+
+def test_cuda_tuning_space_reads_the_cards_limits(cuda_device):
+    """On the card the space's hier budget is the kernel library's
+    opt-in shared-memory limit, its dense budget a quarter of the card's
+    memory, and the device kind the card's normalised name."""
+    from repro_torch.tuning import device_kind
+    from repro_torch.tuning.space import (DENSE_MEMORY_SHARE, TunableSpace,
+                                          WorkloadShape)
+    space = TunableSpace("cuda", WorkloadShape.for_graph(65536))
+    assert space.smem_limit_bytes == bitmap_refine.hier_max_smem()
+    assert space.smem_limit_bytes > 48 * 1024
+    total = torch.cuda.get_device_properties(0).total_memory
+    assert space.dense_budget_bytes == int(total * DENSE_MEMORY_SHARE)
+    kind = device_kind()
+    assert kind == device_kind(cuda_device) != "cpu"
+    assert " " not in kind and kind == kind.lower()
+
+
+def test_cuda_scheduler_keys_its_tuning_by_the_card(cuda_device,
+                                                   monkeypatch, tmp_path):
+    """A scheduler on the card looks its record up under
+    ``cuda/<device kind>/v<bucket>`` and takes it; under the forced
+    plain backend the key is ``torch/<device kind>/...``."""
+    from repro_torch.api.options import MatchOptions
+    from repro_torch.core.vectorized import WaveScheduler
+    from repro_torch.data.graph_gen import er_labeled_graph
+    from repro_torch.kernels.config import backend_scope
+    from repro_torch.tuning import TuningCache, device_kind
+    from repro_torch.tuning.space import CandidateConfig
+    data = er_labeled_graph(40, 120, 3, seed=6)
+    path = tmp_path / "cache.json"
+    monkeypatch.setenv("REPRO_TORCH_TUNING_CACHE", str(path))
+    monkeypatch.delenv("REPRO_TORCH_TUNING_DISABLE", raising=False)
+    TuningCache(path).put("cuda", device_kind(cuda_device), data.n,
+                          CandidateConfig(wave_size=32, n_slots=2,
+                                          stack_capacity=256).as_params())
+    sched = WaveScheduler(data, options=MatchOptions(limit=None),
+                          device=cuda_device)
+    rec = sched.tuning_record
+    assert rec["source"] == "tuning-cache" and rec["backend"] == "cuda"
+    assert rec["key"] == f"cuda/{device_kind(cuda_device)}/v64"
+    assert sched.wave_size == 32 and sched.n_slots == 2
+    with backend_scope("torch"):
+        plain = WaveScheduler(data, options=MatchOptions(limit=None),
+                              device=cuda_device)
+    assert plain.tuning_record["source"] == "builtin"
+    assert plain.tuning_record["key"].startswith("torch/")

@@ -45,7 +45,7 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
         text=True, timeout=120, cwd=ROOT,
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25
+    assert int(out.stdout.strip()) >= 47
 
 
 def _imported_roots(path: Path) -> set[str]:
