@@ -12,6 +12,13 @@ keeps its type.
     g = convert.graph_arrays(jax_sched.g, device="cpu")
     entries = convert.entries(jax_entries)       # -> seed_patterns
 
+The model zoo's parameters come over the same way: the reference's
+parameter pytree, read with ``jax.tree_util.tree_map(np.asarray, params)``
+(bfloat16 leaves included), becomes the port's module with the same
+weights:
+
+    lm = convert.lm_params(tree, cfg, device="cpu")   # an LM module
+
 Like every entry point of the port, these place tensors on ``"cuda"``
 unless the caller asks for another device, and raise without a card.
 """
@@ -27,7 +34,9 @@ from .kernels.config import resolve_device
 from .patterns.store import ENTRY_KEYS, PatternStoreBank
 
 __all__ = ["as_int32", "to_tensor", "graph_arrays", "query_bank",
-           "store_bank", "stack_bank", "entries", "to_numpy"]
+           "store_bank", "stack_bank", "entries", "to_numpy",
+           "flatten_params", "load_params", "lm_params", "gnn_params",
+           "equiv_params", "din_params"]
 
 
 def as_int32(a) -> np.ndarray:
@@ -97,3 +106,85 @@ def to_numpy(nt: Any) -> dict:
     """Every tensor field of a port ``NamedTuple`` as a numpy array."""
     return {k: v.detach().cpu().numpy() for k, v in nt._asdict().items()
             if torch.is_tensor(v)}
+
+
+# ------------------------------------------------------------ model zoo
+def _flat(tree, prefix: str, out: dict) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flat(v, f"{prefix}{k}.", out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flat(v, f"{prefix}{i}.", out)
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+
+
+def flatten_params(tree, stacked=()) -> dict:
+    """A reference parameter pytree (dicts, lists, arrays) as ``{name:
+    numpy array}`` in the port's naming: keys and list indices joined by
+    ``.``; each top-level key in ``stacked`` (layers stacked on axis 0)
+    split into one entry per layer, ``layers.<i>.<rest>``."""
+    out: dict = {}
+    for key, sub in tree.items():
+        if key not in stacked:
+            _flat(sub, f"{key}.", out)
+            continue
+        leaves: dict = {}
+        _flat(sub, "", leaves)
+        n = len(next(iter(leaves.values())))
+        for i in range(n):
+            out.update({f"{key}.{i}.{rest}": a[i]
+                        for rest, a in leaves.items()})
+    return out
+
+
+def _param_tensor(a: np.ndarray) -> torch.Tensor:
+    a = np.array(a, order="C")               # a copy; keeps 0-d leaves 0-d
+    if a.dtype.name == "bfloat16":           # ml_dtypes: same bits as torch's
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def load_params(module: torch.nn.Module, tree, device="cuda", stacked=()):
+    """``module`` (built on ``"meta"``) materialised on ``device`` with
+    the reference tree's weights. Names, shapes and dtypes must match
+    one to one."""
+    flat = flatten_params(tree, stacked)
+    module = module.to_empty(device=resolve_device(device))
+    params = dict(module.named_parameters())
+    if set(flat) != set(params):
+        raise KeyError(f"reference-only {sorted(set(flat) - set(params))}, "
+                       f"port-only {sorted(set(params) - set(flat))}")
+    with torch.no_grad():
+        for name, p in params.items():
+            t = _param_tensor(flat[name])
+            if t.shape != p.shape or t.dtype != p.dtype:
+                raise ValueError(f"{name}: reference {tuple(t.shape)} "
+                                 f"{t.dtype}, port {tuple(p.shape)} "
+                                 f"{p.dtype}")
+            p.copy_(t)
+    return module
+
+
+def lm_params(tree, cfg, device="cuda"):
+    """The port's ``LM`` from the reference's ``lm_init`` tree (layers
+    unstacked, experts kept stacked)."""
+    from .models.transformer import LM
+    return load_params(LM(None, cfg, device="meta"), tree, device,
+                       stacked=("layers",))
+
+
+def gnn_params(tree, cfg, device="cuda"):
+    from .models.gnn import GNN
+    return load_params(GNN(None, cfg, device="meta"), tree, device)
+
+
+def equiv_params(tree, cfg, device="cuda"):
+    from .models.equivariant import Equiv
+    return load_params(Equiv(None, cfg, device="meta"), tree, device)
+
+
+def din_params(tree, cfg, device="cuda"):
+    from .models.recsys import DIN
+    return load_params(DIN(None, cfg, device="meta"), tree, device)

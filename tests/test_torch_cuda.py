@@ -14,7 +14,10 @@ within 2e-2, and bf16 attention within rtol 2e-2 with an atol of two
 bf16 units of each output row's largest value (a flat 2e-2 would exceed
 the outputs of a long softmax). The SpMM kernel also equals, bit for
 bit, ``ref.bitmap_spmm_split_ref`` run on the card: the CPU emulation of
-its decomposition, in the same f32 operations and order.
+its decomposition, in the same f32 operations and order. The model zoo
+(``repro_torch.models``) runs on the card against the CPU: the smoke
+configs of a dense LM and of DeepSeek in float32, one set of weights on
+both, within the port's f32 rule (rtol 1e-4, atol 1e-5, TF32 off).
 """
 import numpy as np
 import pytest
@@ -619,3 +622,70 @@ def test_cuda_scheduler_keys_its_tuning_by_the_card(cuda_device,
                               device=cuda_device)
     assert plain.tuning_record["source"] == "builtin"
     assert plain.tuning_record["key"].startswith("torch/")
+
+
+# ---------------------------------------------------------------- models
+def _f32_smoke(arch):
+    import dataclasses
+    from repro_torch.configs.registry import ARCHS
+    return dataclasses.replace(ARCHS[arch].smoke_config,
+                               param_dtype=torch.float32,
+                               compute_dtype=torch.float32)
+
+
+def _lm_outputs(model, cfg, tokens, targets):
+    """lm_logits, lm_loss and 8 decode steps' logits, on the CPU."""
+    from repro_torch.models import transformer as T
+    with torch.no_grad():
+        state = T.init_decode_state(cfg, 2, 8, device=tokens.device)
+        steps = []
+        for i in range(8):
+            lg, state = T.lm_decode_step(model, cfg, tokens[:, i:i + 1],
+                                         state)
+            steps.append(lg[:, 0])
+        return [t.cpu() for t in (
+            T.lm_logits(model, cfg, tokens),
+            T.lm_loss(model, cfg, {"tokens": tokens, "targets": targets}),
+            torch.stack(steps, 1))]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-v3-671b"])
+def test_cuda_lm_smoke_equals_the_cpu(cuda_device, arch):
+    """One set of float32 weights, drawn on the CPU and copied to the
+    card: logits, loss (MTP included for DeepSeek) and 8 decode steps on
+    the card equal the CPU's within the port's f32 rule (rtol 1e-4,
+    atol 1e-5; TF32 off)."""
+    import copy
+    from repro_torch.models import transformer as T
+    cfg = _f32_smoke(arch)
+    cpu_model = T.lm_init(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    card_model = copy.deepcopy(cpu_model).to(cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 17)))
+    want = _lm_outputs(cpu_model, cfg, toks[:, :-1], toks[:, 1:])
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = _lm_outputs(card_model, cfg, toks[:, :-1].to(cuda_device),
+                          toks[:, 1:].to(cuda_device))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+def test_cuda_model_init_draws_on_the_generator_device(cuda_device):
+    """A card generator draws on the card; a CPU generator's draws are
+    placed on the card: both give card parameters, the CPU one the same
+    values as on the CPU."""
+    from repro_torch.models import transformer as T
+    cfg = _f32_smoke("qwen3-0.6b")
+    on_card = T.lm_init(torch.Generator(device=cuda_device).manual_seed(0),
+                        cfg, device=cuda_device)
+    from_cpu = T.lm_init(torch.Generator().manual_seed(0), cfg,
+                         device=cuda_device)
+    cpu = T.lm_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert all(p.is_cuda for p in on_card.parameters())
+    for a, b in zip(from_cpu.parameters(), cpu.parameters()):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
