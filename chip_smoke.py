@@ -167,13 +167,44 @@ Drives the port (``src/repro_torch``), never the JAX package:
     ``bitmap_spmm_op`` on the Cora-shaped graph's packed adjacency
     against gin-tu's ``_aggregate`` of its first two layers (1e-5).
 
+16. runs the training path (``repro_torch.training``,
+    ``repro_torch.launch.train``, ``repro_torch.data.lm_data``) on the
+    card, TF32 off, within 180 s, every kernel's launch count set to 0
+    before it and required to be 0 after it (training runs no kernel):
+    (a) every LM arch of the registry at its smoke config in float32,
+    one set of weights drawn on the CPU and copied to the card, 5 calls
+    of ``train_step`` on each, on the same 5 ``TokenStream`` batches (2 x
+    32): every step's loss within rtol 1e-4 of the CPU's, and the final
+    weights within the sign-flip rule (``adam_rule``: a lane agrees
+    within rtol 1e-5, atol 1e-6, or differs by at most ``2 * sum(lr) *
+    (1.2 + wd * |w|)``, AdamW's largest two-sided move, on at most 1
+    lane in 1000); the motif GCN of
+    ``examples/motif_features_gnn_torch.py`` the same way for 100 steps;
+    (b) qwen3-0.6b whole at its published widths (bf16 weights, f32
+    moments) through ``repro_torch.launch.train.main`` at batch 8 x 512
+    for 20 steps, checkpoints every 10 in a temporary directory: a run
+    that crashes at step 15 (``--fail-at-step``), then a run that
+    resumes from step 10 and ends at 20. Every loss finite, the last 5
+    losses' mean at least ``LOSS_DROP_MIN`` below the first, the newest
+    checkpoint step 20, and the step-10 checkpoint restoring bit for
+    bit onto the card (weights and both moments against the tensors the
+    driver saved). Prints ms a step (median after the first two, CUDA
+    events), tokens/s, ``adamw_update``'s share of a step, checkpoint
+    bytes, save and restore seconds, peak allocated bytes, and the
+    largest difference between the two runs' losses at steps 10-14 (not
+    0 in general on the card: the backward's scatter-adds may run in
+    another order); (c) the qwen3 smoke checkpoint written from (a)'s
+    card run restoring through the port's ``restore`` onto the card bit
+    for bit. ``[train-*]`` lines.
+
 Steps 11-12 print their seconds (together, ``faults-distributed``),
 refine launches (each part's count set to 0 just before it), fault
 counters and fired faults; steps 13-14 theirs (``tuner-server``); step
-15 one ``[models-*]`` line a part and its seconds (``models``). The
-kernel table's rows carry step 15's launches: (a)-(d)'s
-(``slice6_path_launches``, each 0) and (e)'s
-(``slice6_check_launches``).
+15 one ``[models-*]`` line a part and its seconds (``models``), step 16
+its ``[train-*]`` lines and its seconds (``train``). The kernel table's
+rows carry step 15's launches: (a)-(d)'s (``slice6_path_launches``,
+each 0) and (e)'s (``slice6_check_launches``); and step 16's
+(``slice7_path_launches``, each 0).
 
 Prints one ``[phase]`` info line per step (the ``done`` line gives the
 script's own seconds), then the kernel table as one JSON line, the
@@ -188,6 +219,7 @@ import json
 import math
 import pickle
 import random
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -2373,6 +2405,360 @@ def models_phase(dev) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase 16: the training path
+# ----------------------------------------------------------------------
+TRAIN_BUDGET_S = 180             # phase 16's own limit
+TRAIN_STEPS = 5                  # (a): steps per LM arch
+GCN_STEPS = 100                  # (a): the motif GCN's steps
+TRAIN_LOSS_RTOL = 1e-4           # (a): each step's loss, card vs CPU
+AGREE = (1e-5, 1e-6)             # (a): rtol, atol of an agreeing weight
+FLIP_SHARE = 1e-3                # (a): weights allowed past AGREE
+STEP_BOUND = 1.2                 # |m_hat| / sqrt(v_hat), b1 0.9, b2 0.95
+LOSS_DROP_MIN = 0.5              # (b): last 5 losses' mean below the first
+FULL_TRAIN = ["--arch", "qwen3-0.6b", "--scale", "full", "--batch", "8",
+              "--seq", "512", "--steps", "20", "--ckpt-every", "10",
+              "--log-every", "5"]
+FAIL_AT = 15
+
+
+def adam_rule(got, want, lr_sum: float, wd: float) -> tuple[int, float]:
+    """(weights past ``AGREE``, the largest of their differences over
+    AdamW's largest two-sided move ``2 * lr_sum * (STEP_BOUND + wd *
+    |w|)``; the rule holds when it is <= 1)."""
+    d = (got.double() - want.double()).abs()
+    past = d > AGREE[1] + AGREE[0] * want.double().abs()
+    bound = 2 * lr_sum * (STEP_BOUND + wd * want.double().abs())
+    worst = float((d[past] / bound[past]).max()) if past.any() else 0.0
+    return int(past.sum()), worst
+
+
+def rule_over(tag: str, got: dict, want: dict, lr_sum: float,
+              wd: float) -> dict:
+    """``adam_rule`` over two ``{name: tensor}`` mappings of one model;
+    fails past it. Returns the lanes, the lanes past ``AGREE``, the worst
+    ratio and the largest difference."""
+    import torch
+    lanes = flips = 0
+    worst = err = 0.0
+    for name, w in want.items():
+        g, w = got[name].detach().cpu().float(), w.detach().cpu().float()
+        require(g.shape == w.shape and bool(torch.isfinite(g).all()),
+                f"{tag} {name}: shape or non-finite")
+        n, ratio = adam_rule(g, w, lr_sum, wd)
+        require(ratio <= 1.0, f"{tag} {name}: {n} weights past the rule, "
+                f"worst {ratio:.3f} of AdamW's largest move")
+        lanes, flips = lanes + g.numel(), flips + n
+        worst = max(worst, ratio)
+        err = max(err, float((g - w).abs().max()) if g.numel() else 0.0)
+    require(flips <= FLIP_SHARE * lanes,
+            f"{tag}: {flips} of {lanes} weights past rtol {AGREE[0]} atol "
+            f"{AGREE[1]} (at most {FLIP_SHARE})")
+    return {"lanes": lanes, "past_agree": flips, "worst_of_bound": worst,
+            "max_abs_err": err}
+
+
+def lr_sum(ocfg, steps: int) -> float:
+    from repro_torch.training.optimizer import schedule
+    return float(sum(schedule(ocfg, s) for s in range(1, steps + 1)))
+
+
+def bits_equal(a, b) -> bool:
+    """``a`` and ``b`` hold the same dtype, shape and bits."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    a, b = (t.contiguous().view(view[t.element_size()]) for t in (a, b))
+    return bool(torch.equal(a, b.to(a.device)))
+
+
+def trees_equal(tag: str, got, want) -> int:
+    """Fails unless two trees hold the same leaves bit for bit; returns
+    the leaves compared."""
+    from repro_torch.training.checkpoint import tree_flatten
+    (g, gdef), (w, wdef) = tree_flatten(got), tree_flatten(want)
+    require(str(gdef) == str(wdef) and len(g) == len(w),
+            f"{tag}: tree structures differ")
+    bad = [i for i, (a, b) in enumerate(zip(g, w)) if not bits_equal(a, b)]
+    require(not bad, f"{tag}: leaves {bad[:5]} differ")
+    return len(g)
+
+
+def lm_train_pair(dev, arch: str, seed: int, ckpt_dir: str | None) -> dict:
+    """(a) for one LM arch: ``TRAIN_STEPS`` steps of ``train_step`` on the
+    CPU and on ``dev`` from one set of f32 smoke weights on the same
+    batches. With ``ckpt_dir``, (c): the card's (params, opt) tree saved
+    there restores onto the card bit for bit."""
+    import copy
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.data.lm_data import LMStreamConfig, TokenStream
+    from repro_torch.launch.train import train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.training import checkpoint
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    cfg = f32_config(ARCHS[arch].smoke_config)
+    ocfg = AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS,
+                       warmup_steps=max(10, TRAIN_STEPS // 20))
+    cpu = T.lm_init(torch.Generator().manual_seed(seed), cfg, device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    opts = [adamw_init(convert.ref_order(m), ocfg) for m in (cpu, card)]
+    stream = TokenStream(LMStreamConfig(vocab=cfg.vocab, batch=2,
+                                        seq_len=32, seed=seed))
+    loss_err = 0.0
+    for step in range(TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v) for k, v in
+                 stream.next_batch().items()}
+        want = float(train_step(cpu, opts[0], batch, cfg, ocfg))
+        got = float(train_step(card, opts[1], {
+            k: v.to(dev) for k, v in batch.items()}, cfg, ocfg))
+        require(math.isfinite(got) and abs(got - want)
+                <= TRAIN_LOSS_RTOL * abs(want),
+                f"(a) {arch} step {step}: loss {got} on the card, {want} "
+                f"on the CPU")
+        loss_err = max(loss_err, abs(got - want) / abs(want))
+    res = {"losses_rel_err": loss_err, "final_loss": got,
+           **rule_over(f"(a) {arch}", dict(card.named_parameters()),
+                       dict(cpu.named_parameters()),
+                       lr_sum(ocfg, TRAIN_STEPS), ocfg.weight_decay)}
+    if ckpt_dir is not None:
+        tree = (convert.lm_tree(card), convert.opt_tree(opts[1], card))
+        checkpoint.save(ckpt_dir, TRAIN_STEPS, tree, extra={"arch": arch})
+        back, step, extra = checkpoint.restore(ckpt_dir, tree, device=dev)
+        require(step == TRAIN_STEPS and extra == {"arch": arch},
+                f"(c) restored step {step}, extra {extra}")
+        res["c_leaves_bit_equal"] = trees_equal("(c)", back, tree)
+    return res
+
+
+def gcn_train_pair(dev) -> dict:
+    """(a)'s motif GCN: ``GCN_STEPS`` steps of the example's loop on the
+    CPU and on ``dev`` from one set of weights, motif features computed
+    once on the host by the port's matcher."""
+    import copy
+    import importlib.util
+    import numpy as np
+    import torch
+    from repro_torch.models import gnn
+    spec = importlib.util.spec_from_file_location(
+        "motif_features_gnn_torch",
+        ROOT / "examples" / "motif_features_gnn_torch.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    feats, labels, base_x, ei = ex.motif_task()
+    x = np.concatenate([base_x, feats], 1)
+    cfg = ex.gnn_config(x)
+    cpu = gnn.gnn_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    want, acc_cpu = ex.train(cpu, cfg, x, ei, labels, steps=GCN_STEPS)
+    got, acc = ex.train(card, cfg, x, ei, labels, steps=GCN_STEPS)
+    rel = ((got.double() - want.double()).abs() / want.double().abs())
+    require(bool(torch.isfinite(got).all()) and float(rel.max())
+            <= TRAIN_LOSS_RTOL, f"(a) gcn: losses {float(rel.max())} apart"
+            f" (rtol {TRAIN_LOSS_RTOL})")
+    return {"steps": GCN_STEPS, "losses_rel_err": float(rel.max()),
+            "final_loss": float(got[-1]), "acc": acc, "acc_cpu": acc_cpu,
+            "triangle_vertices": int(labels.sum()),
+            **rule_over("(a) gcn", dict(card.named_parameters()),
+                        dict(cpu.named_parameters()),
+                        lr_sum(ex.OCFG, GCN_STEPS), ex.OCFG.weight_decay)}
+
+
+def train_card_against_cpu(dev) -> dict:
+    """Phase 16 (a) and (c): every LM arch of the registry and the motif
+    GCN, card against CPU."""
+    from repro_torch.configs.registry import ARCHS
+    out = {}
+    with tempfile.TemporaryDirectory() as ck:
+        for i, (arch, spec) in enumerate(ARCHS.items()):
+            if spec.family == "lm":
+                out[arch] = lm_train_pair(
+                    dev, arch, i, ck if arch == "qwen3-0.6b" else None)
+    out["motif-gcn"] = gcn_train_pair(dev)
+    return out
+
+
+class StepClock:
+    """Records CUDA events around every call of the wrapped function (no
+    synchronise: the driver's own ``float(loss)`` orders them), and what
+    the caller keeps from each call."""
+
+    def __init__(self, fn, keep=None):
+        self.fn, self.keep, self.events, self.kept = fn, keep, [], []
+
+    def __call__(self, *args, **kw):
+        import torch
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        out = self.fn(*args, **kw)
+        end.record()
+        self.events.append((start, end))
+        if self.keep is not None:
+            self.kept.append(self.keep(out))
+        return out
+
+    def ms(self) -> list:
+        import torch
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def train_full_width(dev, args=FULL_TRAIN) -> dict:
+    """Phase 16 (b): ``repro_torch.launch.train.main`` at ``args`` on
+    ``dev``, crashing at ``FAIL_AT`` and then resumed, with its step,
+    optimizer, save and restore calls clocked; the step-10 checkpoint
+    restored bit for bit against the tree the driver saved."""
+    import os
+    import torch
+    from repro_torch.launch import train as TR
+    from repro_torch.training import checkpoint
+    from repro_torch.training.checkpoint import tree_flatten
+    patched = {(TR, "train_step"): TR.train_step,
+               (TR, "adamw_update"): TR.adamw_update,
+               (checkpoint, "save"): checkpoint.save,
+               (checkpoint, "restore"): checkpoint.restore}
+    step_clock = StepClock(TR.train_step, keep=lambda loss: loss)
+    opt_clock = StepClock(TR.adamw_update)
+    saves, restores, saved = [], [], {}
+
+    def save(ckpt_dir, step, tree, **kw):
+        sync(dev)
+        t0 = time.perf_counter()
+        final = patched[(checkpoint, "save")](ckpt_dir, step, tree, **kw)
+        saves.append({"step": step, "seconds": time.perf_counter() - t0,
+                      "bytes": sum(f.stat().st_size
+                                   for f in final.iterdir())})
+        if step == 10 and not saved:
+            saved["tree"] = tree
+        return final
+
+    def restore(*a, **kw):
+        t0 = time.perf_counter()
+        out = patched[(checkpoint, "restore")](*a, **kw)
+        sync(dev)
+        restores.append(time.perf_counter() - t0)
+        return out
+    TR.train_step, TR.adamw_update = step_clock, opt_clock
+    checkpoint.save, checkpoint.restore = save, restore
+    res: dict = {}
+    try:
+        with tempfile.TemporaryDirectory() as ck:
+            argv = [*args, "--ckpt-dir", ck, "--device", dev.type]
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            try:
+                TR.main([*argv, "--fail-at-step", str(FAIL_AT)])
+            except RuntimeError as exc:
+                require(str(exc) == f"injected failure at step {FAIL_AT}",
+                        f"(b) the first run failed otherwise: {exc}")
+            else:
+                require(False, "(b) the first run did not crash")
+            res["run1_seconds"] = time.perf_counter() - t0
+            res["run1_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+            gc.collect()
+            require(checkpoint.latest_step(ck) == 10,
+                    f"(b) newest checkpoint {checkpoint.latest_step(ck)}")
+            back, step, _ = checkpoint.restore(ck, saved["tree"], step=10,
+                                               device=dev)
+            res["restored_leaves_bit_equal"] = trees_equal(
+                "(b) step 10", back, saved["tree"])
+            res["params"] = sum(t.numel() for t in
+                                tree_flatten(saved["tree"][0])[0])
+            del back, saved["tree"]
+            run1 = [float(x) for x in step_clock.kept]
+            n1, n1_opt = len(step_clock.events), len(opt_clock.events)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            require(TR.main(argv) == 0, "(b) the resumed run failed")
+            res["run2_seconds"] = time.perf_counter() - t0
+            res["run2_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+            require(checkpoint.latest_step(ck) == 20,
+                    f"(b) newest checkpoint {checkpoint.latest_step(ck)}")
+            res["disk_free_bytes"] = os.statvfs(ck).f_bavail \
+                * os.statvfs(ck).f_frsize
+    finally:
+        for (mod, name), fn in patched.items():
+            setattr(mod, name, fn)
+    run2 = [float(x) for x in step_clock.kept[n1:]]
+    ms, opt_ms = step_clock.ms(), opt_clock.ms()
+    losses = run1[:10] + run2
+    require(len(run1) == FAIL_AT and len(run2) == 10 and
+            all(math.isfinite(x) for x in run1 + run2),
+            f"(b) losses {run1} then {run2}")
+    drop = losses[0] - sum(losses[-5:]) / 5
+    require(drop >= LOSS_DROP_MIN, f"(b) the last 5 losses' mean is "
+            f"{drop:.4f} below the first (at least {LOSS_DROP_MIN})")
+    steady = ms[2:n1] + ms[n1 + 2:]
+    steady_opt = opt_ms[2:n1_opt] + opt_ms[n1_opt + 2:]
+    tokens = int(args[args.index("--batch") + 1]) \
+        * int(args[args.index("--seq") + 1])
+    res.update(step_bounds(args, res.pop("params"), tokens))
+    res.update({
+        "losses": losses,
+        "first_loss": losses[0], "last5_mean": sum(losses[-5:]) / 5,
+        "loss_drop": drop, "loss_drop_min": LOSS_DROP_MIN,
+        "resumed_steps_10_14_max_abs_diff": max(
+            abs(a - b) for a, b in zip(run1[10:], run2[:5])),
+        "ms_per_step_median": statistics.median(steady),
+        "ms_first_steps": [ms[0], ms[1], ms[n1], ms[n1 + 1]],
+        "tokens_per_s": tokens / (statistics.median(steady) / 1e3),
+        "adamw_ms_median": statistics.median(steady_opt),
+        "adamw_share": statistics.median(steady_opt)
+        / statistics.median(steady),
+        "saves": saves, "restore_seconds": restores})
+    return res
+
+
+def step_bounds(args, params: int, tokens: int) -> dict:
+    """The least time of (b)'s work on the card: a step's GEMMs, 6 x
+    (the parameters but the embedding table) x tokens in bf16 (no
+    recomputation counted), over the bf16 peak; ``adamw_update``'s bytes,
+    each parameter read and written, its gradient read and both f32
+    moments read and written, over the memory rate."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    spec = get_arch(args[args.index("--arch") + 1])
+    cfg = spec.config if "full" in args else spec.smoke_config
+    w = torch.empty((), dtype=cfg.param_dtype).element_size()
+    opt_bytes = params * (3 * w + 4 * 4)
+    flops = 6 * (params - cfg.vocab * cfg.d_model) * tokens
+    return {"params": params, "tokens_per_step": tokens,
+            "step_flops": flops,
+            "step_bound_ms": 1e3 * flops / BF16_OPS_PER_S,
+            "adamw_bytes": opt_bytes,
+            "adamw_bound_ms": 1e3 * opt_bytes / HBM_BYTES_PER_S}
+
+
+def train_phase(dev) -> dict:
+    """Phase 16: the training path on ``dev`` ((a)-(c) above), within
+    ``TRAIN_BUDGET_S``. TF32 stays off. Every kernel's count is set to 0
+    before it and read after it: each must be 0 (``path_launches``)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    reset_kernel_launches()
+    parts = {"a": train_card_against_cpu(dev)}
+    info("train-card-vs-cpu", **parts["a"])
+    torch.cuda.empty_cache()
+    parts["b"] = train_full_width(dev)
+    info("train-full", **parts["b"])
+    torch.cuda.synchronize()
+    parts["path_launches"] = kernel_launches()
+    info("train-path", launches=parts["path_launches"])
+    require(not any(parts["path_launches"].values()),
+            f"phase 16 launched a kernel: {parts['path_launches']}")
+    seconds = time.perf_counter() - t0
+    info("train", seconds=seconds, within_180_s=seconds <= TRAIN_BUDGET_S)
+    require(seconds <= TRAIN_BUDGET_S,
+            f"phase 16 took {seconds:.1f} s (limit {TRAIN_BUDGET_S})")
+    return parts
+
+
+# ----------------------------------------------------------------------
 def warm_up(dev, wl) -> None:
     """CUDA context and first launches of both kernels' paths, outside
     every counted run."""
@@ -2422,18 +2808,20 @@ TIMING_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def kernel_row(name, source, replaces, launches, worst, timing,
-               slice6, cases=None) -> dict:
+               slice6, slice7, cases=None) -> dict:
     """One row of the kernel table: ``launches`` from the main path's
     run, the times and bound from ``timing`` (one case's), the error the
     worst of the checks; ``slice6`` the kernel's launches in phase 15,
-    ``path`` in the models' run (a)-(d) and ``check`` in (e); ``cases``
-    adds every timed case's numbers."""
+    ``path`` in the models' run (a)-(d) and ``check`` in (e); ``slice7``
+    its launches in phase 16; ``cases`` adds every timed case's
+    numbers."""
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches,
            "max_abs_err": max(worst, timing.get("max_abs_err", 0)),
            **{k: timing.get(k) for k in TIMING_KEYS},
            "slice6_path_launches": slice6["path"],
-           "slice6_check_launches": slice6["check"]}
+           "slice6_check_launches": slice6["check"],
+           "slice7_path_launches": slice7}
     if "launch_floor_ms" in timing:
         row["launch_floor_ms"] = timing["launch_floor_ms"]
     if cases:
@@ -2549,21 +2937,29 @@ def main() -> int:
                      "check": models["e"]["launches"][name]}
               for name in models["path_launches"]}
     models_seconds = time.perf_counter() - t_models
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_train = time.perf_counter()
+    slice7 = train_phase(dev)["path_launches"]
+    train_seconds = time.perf_counter() - t_train
     rows = [kernel_row("refine_bitmap_rows",
                        "src/repro_torch/kernels/csrc/bitmap_refine.cu",
                        "src/repro/kernels/bitmap_refine.py:100",
                        launches["dense"], worst, timing,
-                       slice6["refine_bitmap_rows"]),
+                       slice6["refine_bitmap_rows"],
+                       slice7["refine_bitmap_rows"]),
             kernel_row("refine_bitmap_rows_hier",
                        "src/repro_torch/kernels/csrc/bitmap_refine_hier.cu",
                        "src/repro/kernels/bitmap_refine.py:323",
                        launches["hier"], worst_hier, timing_hier,
-                       slice6["refine_bitmap_rows_hier"]),
+                       slice6["refine_bitmap_rows_hier"],
+                       slice7["refine_bitmap_rows_hier"]),
             kernel_row("bitmap_spmm",
                        "src/repro_torch/kernels/csrc/bitmap_spmm.cu",
                        "src/repro/kernels/bitmap_spmm.py:68",
                        op_launches["bitmap_spmm"], worst_ops["bitmap_spmm"],
                        op_timing["a human f32"], slice6["bitmap_spmm"],
+                       slice7["bitmap_spmm"],
                        {c: op_timing[c] for c in SPMM_TIMED}),
             kernel_row("flash_attention",
                        "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2571,12 +2967,13 @@ def main() -> int:
                        op_launches["flash_attention"],
                        worst_ops["flash_attention"],
                        op_timing["a prefill bf16"],
-                       slice6["flash_attention"])]
+                       slice6["flash_attention"],
+                       slice7["flash_attention"])]
     seconds = time.perf_counter() - t_start
     info("done", seconds=seconds, ops_seconds=ops_seconds,
          faults_distributed_seconds=ft_seconds,
          tuner_server_seconds=ts_seconds, models_seconds=models_seconds,
-         within_600_s=seconds <= 600)
+         train_seconds=train_seconds, within_600_s=seconds <= 600)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

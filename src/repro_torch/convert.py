@@ -19,6 +19,15 @@ weights:
 
     lm = convert.lm_params(tree, cfg, device="cpu")   # an LM module
 
+and back: ``lm_tree`` / ``gnn_tree`` give a port module's parameters as
+the reference's tree (tensors; LM layers stacked again on axis 0),
+``opt_tree`` the optimizer state as the reference's ``{"m", "step",
+"v"}`` tree and ``opt_state`` the reverse; ``ref_order`` lists a
+module's parameters in the order the reference flattens its tree, and
+``decayed`` names those whose reference leaf has two or more dimensions
+(the leaves the reference's AdamW decays). These
+trees are what ``training.checkpoint`` writes in the reference's layout.
+
 Like every entry point of the port, these place tensors on ``"cuda"``
 unless the caller asks for another device, and raise without a card.
 """
@@ -36,7 +45,8 @@ from .patterns.store import ENTRY_KEYS, PatternStoreBank
 __all__ = ["as_int32", "to_tensor", "graph_arrays", "query_bank",
            "store_bank", "stack_bank", "entries", "to_numpy",
            "flatten_params", "load_params", "lm_params", "gnn_params",
-           "equiv_params", "din_params"]
+           "equiv_params", "din_params", "lm_tree", "gnn_tree", "opt_tree",
+           "opt_state", "ref_order", "decayed"]
 
 
 def as_int32(a) -> np.ndarray:
@@ -117,12 +127,12 @@ def _flat(tree, prefix: str, out: dict) -> None:
         for i, v in enumerate(tree):
             _flat(v, f"{prefix}{i}.", out)
     else:
-        out[prefix[:-1]] = np.asarray(tree)
+        out[prefix[:-1]] = tree if torch.is_tensor(tree) else np.asarray(tree)
 
 
 def flatten_params(tree, stacked=()) -> dict:
-    """A reference parameter pytree (dicts, lists, arrays) as ``{name:
-    numpy array}`` in the port's naming: keys and list indices joined by
+    """A reference parameter pytree (dicts, lists, arrays or tensors) as
+    ``{name: array}`` in the port's naming: keys and list indices joined by
     ``.``; each top-level key in ``stacked`` (layers stacked on axis 0)
     split into one entry per layer, ``layers.<i>.<rest>``."""
     out: dict = {}
@@ -139,7 +149,9 @@ def flatten_params(tree, stacked=()) -> dict:
     return out
 
 
-def _param_tensor(a: np.ndarray) -> torch.Tensor:
+def _param_tensor(a) -> torch.Tensor:
+    if torch.is_tensor(a):
+        return a.detach()
     a = np.array(a, order="C")               # a copy; keeps 0-d leaves 0-d
     if a.dtype.name == "bfloat16":           # ml_dtypes: same bits as torch's
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
@@ -188,3 +200,115 @@ def equiv_params(tree, cfg, device="cuda"):
 def din_params(tree, cfg, device="cuda"):
     from .models.recsys import DIN
     return load_params(DIN(None, cfg, device="meta"), tree, device)
+
+
+# ------------------------------------------------- back to the reference
+def _stacked(module) -> tuple:
+    """The top-level keys the reference stacks on axis 0 for ``module``:
+    an LM's ``layers``."""
+    from .models.transformer import LM
+    return ("layers",) if isinstance(module, LM) else ()
+
+
+def _ref_key(name: str, stacked) -> list:
+    parts = [int(s) if s.isdigit() else s for s in name.split(".")]
+    if parts[0] in stacked:          # layers.<i>.<rest> -> layers.<rest>.<i>
+        parts = [parts[0], *parts[2:], parts[1]]
+    return parts
+
+
+def ref_order(module) -> dict:
+    """``module.named_parameters()`` as a dict in the reference's flatten
+    order (dict keys sorted, list indices in order, a stacked leaf's
+    layers one after another)."""
+    stacked = _stacked(module)
+    named = dict(module.named_parameters())
+    return {n: named[n] for n in sorted(named,
+                                        key=lambda n: _ref_key(n, stacked))}
+
+
+def decayed(module) -> set:
+    """The names of ``module``'s parameters whose leaf in the reference's
+    tree has ``ndim >= 2``: the reference's AdamW decays exactly those.
+    A stacked layer's every tensor counts one dimension more, so an LM's
+    per-layer norms and biases are decayed, ``ln_final`` is not."""
+    stacked = _stacked(module)
+    return {n for n, p in module.named_parameters()
+            if p.ndim + (n.split(".")[0] in stacked) >= 2}
+
+
+def _put(tree: dict, parts: list, leaf) -> None:
+    for p in parts[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[parts[-1]] = leaf
+
+
+def _listify(tree):
+    """Nested dicts whose keys are all digits become lists."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _listify(v) for k, v in tree.items()}
+    if out and all(k.isdigit() for k in out):
+        return [out[k] for k in sorted(out, key=int)]
+    return out
+
+
+def _nest(named: dict, stacked=()) -> dict:
+    """``{name: tensor}`` in the port's naming as the reference's tree
+    (the inverse of ``flatten_params``): each leaf a detached copy, the
+    per-layer leaves of every key in ``stacked`` stacked on axis 0."""
+    tree: dict = {}
+    layers: dict = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] in stacked:
+            layers.setdefault((parts[0], *parts[2:]), {})[int(parts[1])] = t
+        else:
+            _put(tree, parts, t.detach().clone())
+    for parts, per_layer in layers.items():
+        _put(tree, list(parts), torch.stack(
+            [per_layer[i].detach() for i in range(len(per_layer))]))
+    return _listify(tree)
+
+
+def lm_tree(model) -> dict:
+    """The reference-shaped parameter tree of a port ``LM`` (layers
+    stacked on axis 0, experts stacked as they are): ``lm_params`` of it
+    gives back the same model bit for bit."""
+    return _nest(dict(model.named_parameters()), ("layers",))
+
+
+def gnn_tree(model) -> dict:
+    return _nest(dict(model.named_parameters()))
+
+
+def opt_tree(state: dict, model) -> dict:
+    """The port's AdamW state (``training.optimizer``) as the reference's
+    ``adamw_init`` tree for ``model``'s parameters."""
+    stacked = _stacked(model)
+    return {"m": _nest(state["m"], stacked),
+            "step": state["step"].detach().clone(),
+            "v": _nest(state["v"], stacked)}
+
+
+def opt_state(tree: dict, model) -> dict:
+    """The reverse of ``opt_tree``: the reference's optimizer tree as the
+    port's AdamW state for ``model``, on ``model``'s device."""
+    stacked = _stacked(model)
+    params = dict(model.named_parameters())
+    device = next(iter(params.values())).device
+
+    def moments(sub) -> dict:
+        flat = flatten_params(sub, stacked)
+        if set(flat) != set(params):
+            raise KeyError(f"optimizer tree and model differ: "
+                           f"{sorted(set(flat) ^ set(params))}")
+        out = {}
+        for n in params:
+            t = _param_tensor(flat[n])
+            out[n] = torch.empty(t.shape, dtype=t.dtype,
+                                 device=device).copy_(t)
+        return out
+    step = _param_tensor(tree["step"]).to(device=device, dtype=torch.int32)
+    return {"m": moments(tree["m"]), "v": moments(tree["v"]),
+            "step": step.clone()}
