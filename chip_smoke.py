@@ -197,14 +197,44 @@ Drives the port (``src/repro_torch``), never the JAX package:
     card run restoring through the port's ``restore`` onto the card bit
     for bit. ``[train-*]`` lines.
 
+17. runs the serving examples and the step cells on the card within
+    150 s, every kernel's count set to 0 before (a) and read after (b)
+    (the dense refine's must be positive): (a)
+    ``examples/quickstart_torch.py`` whole (the wave engine's trap(100)
+    embeddings the oracle's set) and ``examples/serve_queries_torch.py``
+    at its defaults (50 ten-vertex queries and the heavy query on the
+    yeast-like graph, 2 s budgets: a finished query gives the oracle's
+    set, a capped one 1000 valid distinct rows, a timed-out one valid
+    rows, counted; the streamed trap(60) query the oracle's set, the
+    cancelled one ``cancelled`` with valid rows; the distributed
+    trap(120) the oracle's set), then its ``--server`` part (16 queries)
+    against ``python -m repro_torch.server.launch`` on the card (default
+    graph and knobs; its dense refine launches, from ``/metrics``,
+    positive; SIGTERM exit 0); (b) over a one-rank NCCL group, every cell
+    of ``all_cells(include_matcher=True)`` built at mesh (1, 1) and its
+    argument bytes printed; the two matcher cells at their published
+    shapes on real banks (a 4096-vertex power-law graph, 16 five-vertex
+    queries; ``steps.matcher_args``; the megastep cell's Δ store is the
+    wave cell's input), each bit for bit against the same cell on the
+    CPU, dense refine launches positive, step times; the GNN,
+    equivariant and DIN cells whose estimated peak (argument bytes, a
+    train step's gradients and AdamW temporaries, and 16 times what a
+    probe at 1/16 of the cell's sizes allocates) is under 60 GB, run
+    with random inputs, finite, and against the CPU by the f32 rule
+    where the card's peak is at most 8 GB; the others listed with their
+    bytes; every LM cell's ``fn`` raising ``NotImplementedError`` naming
+    ROADMAP item 9b. ``[examples-*]`` and ``[cells-*]`` lines.
+
 Steps 11-12 print their seconds (together, ``faults-distributed``),
 refine launches (each part's count set to 0 just before it), fault
 counters and fired faults; steps 13-14 theirs (``tuner-server``); step
 15 one ``[models-*]`` line a part and its seconds (``models``), step 16
-its ``[train-*]`` lines and its seconds (``train``). The kernel table's
-rows carry step 15's launches: (a)-(d)'s (``slice6_path_launches``,
-each 0) and (e)'s (``slice6_check_launches``); and step 16's
-(``slice7_path_launches``, each 0).
+its ``[train-*]`` lines and its seconds (``train``), step 17 its
+``[examples-*]`` / ``[cells-*]`` lines and its seconds (``slice8``).
+The kernel table's rows carry step 15's launches: (a)-(d)'s
+(``slice6_path_launches``, each 0) and (e)'s
+(``slice6_check_launches``); step 16's (``slice7_path_launches``, each
+0); and step 17's (``slice8_path_launches``).
 
 Prints one ``[phase]`` info line per step (the ``done`` line gives the
 script's own seconds), then the kernel table as one JSON line, the
@@ -2759,6 +2789,454 @@ def train_phase(dev) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase 17: the serving examples and the step cells
+# ----------------------------------------------------------------------
+PHASE17_BUDGET_S = 150           # phase 17's own limit
+SERVE_N_QUERIES = 50             # serve_queries_torch's default, uncut
+SERVER_N_QUERIES = 16            # the example's --server part
+CELL_PEAK_LIMIT = 60e9           # (b) runs a cell estimated under this
+CELL_CPU_LIMIT = 8e9             # ... and against the CPU if its peak is below
+PROBE_SCALE = 16                 # the peak probe's sizes: 1/16 of the cell's
+SIZE_DIMS = {"full_graph": ("n_nodes", "n_edges"),   # scaled by the probe
+             "sampled": ("batch_nodes",), "batched_graphs": ("batch",),
+             "recsys_train": ("batch",), "recsys_serve": ("batch",),
+             "recsys_retrieval": ("n_candidates",)}
+MATCHER_GRAPH = {"n": 4096, "m": 3, "labels": 16, "seed": 0}
+# five-vertex queries emit embeddings and store Lemma-1 patterns within
+# the megastep cell's 6 iterations (eight-vertex ones reach no leaf)
+MATCHER_QUERIES = {"size": 5, "seed": 7}
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_served(tag: str, rows, status: str, query, data) -> None:
+    """The examples' rule: rows valid and distinct; a finished query
+    gives the oracle's set, a capped one 1000 rows; a timed-out one
+    valid rows only. Any other status fails."""
+    from repro_torch.core.backtrack import backtrack_deadend
+    require(status in ("ok", "limit", "timeout"), f"{tag}: {status}")
+    require(all(valid_embedding(e, query, data) for e in rows),
+            f"{tag}: invalid embedding row")
+    require(len(emb_set(rows)) == len(rows), f"{tag}: duplicate embedding")
+    if status == "ok":
+        want = backtrack_deadend(query, data, limit=None)
+        require(emb_set(rows) == emb_set(want.embeddings),
+                f"{tag}: {len(rows)} rows, the oracle's set has "
+                f"{want.stats.found}")
+    elif status == "limit":
+        require(len(rows) == 1000, f"{tag}: capped at {len(rows)} rows")
+
+
+def quickstart_part(dev) -> dict:
+    """``examples/quickstart_torch.py`` whole on ``dev``: the wave
+    engine's embeddings on trap(100) must be the oracle's set."""
+    from repro_torch.core.backtrack import backtrack_deadend
+    qs = load_example("quickstart_torch")
+    t0 = time.perf_counter()
+    out = qs.main(["--device", dev.type])
+    seconds = time.perf_counter() - t0
+    trap, eng = out["trap"], out["engine"]
+    oracle = backtrack_deadend(trap["query"], trap["data"], limit=None)
+    require(emb_set(eng["embeddings"]) == emb_set(oracle.embeddings),
+            "quickstart: the wave engine's set differs from the oracle's")
+    require(out["fig1"]["found"] == 2 and trap["found"] == 200,
+            f"quickstart: {out['fig1']['found']} / {trap['found']} found")
+    return {"seconds": seconds, "fig1": out["fig1"]["found"],
+            "trap_pruned_recursions": trap["pruned_recursions"],
+            "trap_plain_recursions": trap["plain_recursions"],
+            "engine": {k: eng[k] for k in ("found", "waves", "rows",
+                                           "prunes")},
+            "yeast": out["yeast"]}
+
+
+def serve_part(dev, n_queries: int = SERVE_N_QUERIES) -> dict:
+    """``examples/serve_queries_torch.py`` on ``dev`` at ``n_queries``
+    (its default unless cut): every batched query by the examples' rule,
+    the streamed trap query the oracle's set, the cancelled one
+    ``cancelled`` with valid rows, the distributed trap(120) the
+    oracle's set."""
+    from repro_torch.core.backtrack import backtrack_deadend
+    sq = load_example("serve_queries_torch")
+    t0 = time.perf_counter()
+    out = sq.main(["--device", dev.type, "--n-queries", str(n_queries)])
+    seconds = time.perf_counter() - t0
+    data, batch = out["data"], out["batch"]
+    for i, (q, r) in enumerate(zip(batch["queries"], batch["results"])):
+        check_served(f"serve q{i}", r.embeddings, r.status, q, data)
+    st = out["stream"]
+    check_served("stream", st["rows"], st["status"], st["query"],
+                 st["data"])
+    require(st["status"] == "ok", f"stream: {st['status']}")
+    require(st["cancelled_status"] == "cancelled",
+            f"cancelled query: {st['cancelled_status']}")
+    require(all(valid_embedding(e, st["query"], st["data"])
+                for e in st["cancelled_rows"]),
+            "cancelled query: invalid embedding row")
+    dist_ = out["distributed"]
+    oracle = backtrack_deadend(dist_["query"], dist_["data"], limit=None)
+    require(dist_["found"] == oracle.stats.found
+            and emb_set(dist_["embeddings"]) == emb_set(oracle.embeddings),
+            f"distributed trap(120): {dist_['found']} found, the oracle "
+            f"{oracle.stats.found}")
+    rep = batch["report"]
+    statuses = [r.status for r in batch["results"]]
+    return {"seconds": seconds, "n_queries": n_queries,
+            "served": len(statuses), "qps": batch["qps"],
+            "wall_s": batch["wall_s"], "p50_ms": rep["p50_ms"],
+            "p99_ms": rep["p99_ms"], "mean_ms": rep["mean_ms"],
+            "ttfe_p50_ms": rep.get("ttfe_p50_ms"),
+            "timed_out": statuses.count("timeout"),
+            "capped": statuses.count("limit"), "found": batch["found"],
+            "engine": batch["engine"], "stream_rows": len(st["rows"]),
+            "stream_ttfe_ms": 1e3 * st["ttfe_s"],
+            "stream_latency_ms": 1e3 * st["latency_s"],
+            "cancelled_rows": len(st["cancelled_rows"]),
+            "distributed": {k: dist_[k] for k in ("found", "rows", "prunes",
+                                                  "steals")}}
+
+
+def example_server_part(dev) -> dict:
+    """The example's ``--server`` part against ``python -m
+    repro_torch.server.launch`` on ``dev`` (its default graph and
+    knobs): every query by the examples' rule, the server's dense refine
+    launches (two ``/metrics`` snapshots) positive, SIGTERM exit 0."""
+    import os
+    import signal
+    from repro_torch.server.client import ServeClient
+    sq = load_example("serve_queries_torch")
+    t0 = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT / "src"), env.get("PYTHONPATH")) if p)
+    cmd = [sys.executable, "-m", "repro_torch.server.launch",
+           "--device", dev.type, "--port", "0", "--quiet"]
+    with tempfile.TemporaryDirectory() as tmp:
+        err_path = str(Path(tmp) / "server.err")
+        with open(err_path, "w") as err:
+            proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                                    stdout=subprocess.PIPE, stderr=err)
+        try:
+            ready = wait_ready(proc, err_path, 300)
+            cli = ServeClient(ready["host"], ready["port"], timeout=600)
+            before = cli.metrics()["kernel_launches"]
+            got = sq.main(["--server", f"{ready['host']}:{ready['port']}",
+                           "--n-queries", str(SERVER_N_QUERIES)])["server"]
+            after = cli.metrics()["kernel_launches"]
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+        err_text = Path(err_path).read_text()
+    require(rc == 0, f"example server: exit {rc}: {err_text[-2000:]}")
+    for i, (q, rows, res) in enumerate(zip(got["queries"], got["rows"],
+                                           got["results"])):
+        check_served(f"example server q{i}", rows, res["status"], q,
+                     got["data"])
+    launches = {k: after[k] - before[k] for k in before}
+    require(launches["refine_bitmap_rows"] > 0,
+            f"example server: refine launches {launches}")
+    return {"seconds": time.perf_counter() - t0,
+            "queries": len(got["results"]), "statuses": got["statuses"],
+            "wire_qps": got["qps"], "server_launches": launches,
+            "p50_ms": got["slo"].get("p50_ms"),
+            "p99_ms": got["slo"].get("p99_ms")}
+
+
+def examples_phase(dev) -> dict:
+    """Phase 17 (a): both serving examples on ``dev``."""
+    parts = {"quickstart": quickstart_part(dev)}
+    info("examples-quickstart", **parts["quickstart"])
+    parts["serve"] = serve_part(dev)
+    info("examples-serve", **parts["serve"])
+    parts["server"] = example_server_part(dev)
+    info("examples-server", **parts["server"])
+    return parts
+
+
+def single_rank_group(dev) -> None:
+    """A one-rank process group (NCCL on the card, gloo on the CPU) on a
+    free local port."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    if dev.type == "cuda":
+        import torch
+        torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+
+
+def to_device(tree, dev):
+    from repro_torch.launch.sharding import tree_map
+    return tree_map(lambda t: t.to(dev, copy=True), tree)
+
+
+def compare_trees(tag: str, got, want, rule=F32_RULE) -> dict:
+    """Every tensor lane of ``got`` (any device) against ``want``:
+    integer, boolean and bitmap lanes bit for bit, float lanes within
+    ``rule`` (rtol, atol). Returns the lanes compared and the largest
+    float difference."""
+    import torch
+    from repro_torch.launch.sharding import tree_leaves_with_path
+    g_leaves = dict(tree_leaves_with_path(got))
+    w_leaves = dict(tree_leaves_with_path(want))
+    require(set(g_leaves) == set(w_leaves), f"{tag}: output trees differ")
+    worst = 0.0
+    for path, w in w_leaves.items():
+        g = g_leaves[path].detach().cpu()
+        w = w.detach().cpu()
+        require(g.shape == w.shape and g.dtype == w.dtype,
+                f"{tag} {path}: {tuple(g.shape)} {g.dtype} vs "
+                f"{tuple(w.shape)} {w.dtype}")
+        if w.is_floating_point():
+            require_finite(f"{tag} {path}", g)
+            err, bad = violations(g, w, rule)
+            require(bad == 0, f"{tag} {path}: {bad} lanes past {rule}, "
+                    f"max |diff| {err:.3g}")
+            worst = max(worst, err)
+        else:
+            require(bool(torch.equal(g, w)), f"{tag} {path}: lanes differ")
+    return {"lanes": len(w_leaves), "max_abs_err": worst}
+
+
+def matcher_cells(dev, mesh) -> dict:
+    """Phase 17 (b), the matcher cells at their published shapes, on real
+    banks: a 4096-vertex power-law graph and 16 five-vertex queries
+    through ``steps.matcher_args``. The stack cell runs first; its Δ
+    store after the run is the wave cell's input store. Each runs on
+    ``dev`` and on the CPU (plain refine), every lane bit for bit; the
+    card run's dense refine launches must be positive. Step times: the
+    median of 3 calls on fresh copies of the inputs."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.graph_gen import powerlaw_graph, query_set
+    from repro_torch.launch import steps
+    g = MATCHER_GRAPH
+    data = powerlaw_graph(g["n"], g["m"], g["labels"], seed=g["seed"])
+    spec = get_arch("paper-matcher")
+    out, store = {}, None
+    for shape in ("yeast_scale_stacks", "yeast_scale"):
+        dims = spec.shape(shape).dims
+        queries = query_set(data, MATCHER_QUERIES["size"], dims["n_slots"],
+                            seed=MATCHER_QUERIES["seed"])
+        cell = steps.build_cell("paper-matcher", shape, mesh)
+        args = steps.matcher_args(dims, data, queries, device="cpu")
+        if store is not None:
+            args = args[:2] + (store,) + args[3:]
+        t0 = time.perf_counter()
+        want = cell.fn(*to_device(args, torch.device("cpu")))
+        cpu_s = time.perf_counter() - t0
+        before = refine_launches()
+        got = cell.fn(*to_device(args, dev))
+        sync(dev)
+        launches = {k: v - before[k] for k, v in refine_launches().items()}
+        require(launches["dense"] > 0 and launches["hier"] == 0,
+                f"{shape}: refine launches {launches}")
+        res = compare_trees(shape, got, want)
+        times = []
+        for _ in range(3):
+            fresh = to_device(args, dev)
+            sync(dev)
+            t0 = time.perf_counter()
+            cell.fn(*fresh)
+            sync(dev)
+            times.append(1e3 * (time.perf_counter() - t0))
+        if shape == "yeast_scale_stacks":
+            store = want.tb
+            res.update(expanded=int(want.d_expanded.sum()),
+                       rows=int(want.d_rows.sum()),
+                       prunes=int(want.d_prunes.sum()),
+                       stored=int(want.d_stored.sum()),
+                       embeddings=int(want.n_emb))
+        else:
+            res.update(children=int(want[0].n_children.sum()),
+                       prunes=int(want[0].n_pruned.sum()))
+        out[shape] = {**res, "launches": launches["dense"],
+                      "step_ms": statistics.median(times), "cpu_s": cpu_s,
+                      "arg_bytes": cell.arg_bytes()}
+        info(f"cells-{shape}", **out[shape])
+    return out
+
+
+def max_f32_leaf(tree) -> int:
+    from repro_torch.launch.sharding import tree_leaves_with_path
+    return max(4 * t.numel() for _, t in tree_leaves_with_path(tree))
+
+
+def probe_excess(spec, shape, mesh, dev) -> float:
+    """Bytes a call of the cell at 1/``PROBE_SCALE`` of its sizes
+    allocates beyond its arguments (the card's peak-memory counter);
+    infinite if the probe itself runs out of memory."""
+    import dataclasses
+    import torch
+    from repro_torch.launch import steps
+    dims = {k: (max(1, v // PROBE_SCALE) if k in SIZE_DIMS[shape.kind]
+                else v) for k, v in shape.dims.items()}
+    small = dataclasses.replace(shape, dims=dims)
+    cell = steps.build_cell_of(spec, small, mesh)
+    args = steps.example_args(spec, small, cell, seed=3, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    try:
+        cell.fn(*args)
+        torch.cuda.synchronize()
+        excess = float(torch.cuda.max_memory_allocated() - before)
+    except torch.OutOfMemoryError:
+        excess = math.inf
+    del cell, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return excess
+
+
+def model_cells(dev, mesh, peak_limit=CELL_PEAK_LIMIT,
+                cpu_limit=CELL_CPU_LIMIT) -> dict:
+    """Phase 17 (b), the GNN, equivariant and DIN cells. Each cell's
+    estimated peak: its argument bytes plus, for a train step, its
+    gradients and six f32 copies of its largest leaf (AdamW's per-leaf
+    temporaries); past ``peak_limit`` it does not fit. Else a probe at
+    1/``PROBE_SCALE`` of its sizes measures what a call allocates beyond
+    its arguments, and the estimate adds ``PROBE_SCALE`` times that.
+    A cell estimated under ``peak_limit`` runs on ``dev`` with random
+    inputs (``steps.example_args``): finite outputs, and, if the card's
+    measured peak is at most ``cpu_limit``, every output lane against
+    the CPU's run of the same inputs (copied before the card's run, which
+    updates donated arguments in place) by the f32 rule."""
+    import torch
+    from repro_torch.configs.registry import all_cells, get_arch
+    from repro_torch.launch import steps
+    out, skipped = {}, {}
+    for arch, shape_name in all_cells():
+        spec = get_arch(arch)
+        if spec.family == "lm":
+            continue
+        shape = spec.shape(shape_name)
+        cell = steps.build_cell(arch, shape_name, mesh)
+        name = f"{arch}/{shape_name}"
+        nbytes = cell.arg_bytes()
+        est = nbytes
+        if cell.donate:
+            est += (steps.tree_bytes(cell.args[0])
+                    + 6 * max_f32_leaf(cell.args[0]))
+        if est <= peak_limit and dev.type == "cuda":
+            est += PROBE_SCALE * probe_excess(spec, shape, mesh, dev)
+        if est > peak_limit:
+            skipped[name] = {"arg_bytes": nbytes, "est_peak_bytes": est}
+            continue
+        args = steps.example_args(spec, shape, cell, seed=17, device=dev)
+        cpu_args = to_device(args, torch.device("cpu"))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = cell.fn(*args)
+        sync(dev)
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+                else est)
+        on_cpu = peak <= cpu_limit
+        row = {"arg_bytes": nbytes, "est_peak_bytes": est,
+               "peak_bytes": peak, "ms": ms, "cpu_checked": on_cpu}
+        if on_cpu:
+            t0 = time.perf_counter()
+            want = cell.fn(*cpu_args)
+            row["cpu_s"] = time.perf_counter() - t0
+            row.update(compare_trees(name, got, want))
+        else:
+            from repro_torch.launch.sharding import tree_leaves_with_path
+            require_finite(name, *(t for _, t in tree_leaves_with_path(got)
+                                   if t.is_floating_point()))
+        out[name] = row
+        del got, args, cpu_args
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return {"ran": out, "not_fitting": skipped}
+
+
+def lm_cells(mesh) -> int:
+    """Every LM cell's ``fn`` must raise naming ROADMAP item 9b."""
+    from repro_torch.configs.registry import ARCHS, all_cells
+    from repro_torch.launch import steps
+    n = 0
+    for arch, shape in all_cells():
+        if ARCHS[arch].family != "lm":
+            continue
+        cell = steps.build_cell(arch, shape, mesh)
+        try:
+            cell.fn(*cell.args)
+        except NotImplementedError as exc:
+            require("item 9b" in str(exc), f"{arch}/{shape}: {exc}")
+            n += 1
+        else:
+            raise SmokeFailure(f"{arch}/{shape}: the LM cell ran")
+    return n
+
+
+def cells_phase(dev, peak_limit=CELL_PEAK_LIMIT,
+                cpu_limit=CELL_CPU_LIMIT) -> dict:
+    """Phase 17 (b): every cell built at mesh (1, 1) over a one-rank
+    process group on ``dev``, its argument bytes printed; the matcher
+    cells, the model cells that fit and the LM cells' refusal."""
+    import torch.distributed as dist
+    from repro_torch.configs.registry import all_cells
+    from repro_torch.launch import mesh as meshes, steps
+    single_rank_group(dev)
+    try:
+        mesh = meshes.make_host_test_mesh((1, 1))
+        info("cells-bytes", **{f"{a}/{s}": steps.build_cell(a, s, mesh)
+                               .arg_bytes()
+                               for a, s in all_cells(include_matcher=True)})
+        parts = {"matcher": matcher_cells(dev, mesh)}
+        parts["models"] = model_cells(dev, mesh, peak_limit, cpu_limit)
+        info("cells-models", **parts["models"])
+        parts["lm_refused"] = lm_cells(mesh)
+        info("cells-lm", refused=parts["lm_refused"])
+    finally:
+        dist.destroy_process_group()
+    return parts
+
+
+def examples_cells_phase(dev) -> dict:
+    """Phase 17: (a) the serving examples and (b) the step cells on
+    ``dev``, within ``PHASE17_BUDGET_S``. Every kernel's count is set to
+    0 before (a) and read after (b) (``path_launches``); the dense
+    refine's must be positive."""
+    import torch
+    t0 = time.perf_counter()
+    reset_kernel_launches()
+    parts = {"a": examples_phase(dev)}
+    parts["b"] = cells_phase(dev)
+    sync(dev)
+    parts["path_launches"] = kernel_launches()
+    info("slice8-path", launches=parts["path_launches"])
+    require(parts["path_launches"]["refine_bitmap_rows"] > 0,
+            f"phase 17: no dense refine launch: {parts['path_launches']}")
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    info("slice8", seconds=seconds,
+         within_150_s=seconds <= PHASE17_BUDGET_S)
+    require(seconds <= PHASE17_BUDGET_S,
+            f"phase 17 took {seconds:.1f} s (limit {PHASE17_BUDGET_S})")
+    return parts
+
+
+# ----------------------------------------------------------------------
 def warm_up(dev, wl) -> None:
     """CUDA context and first launches of both kernels' paths, outside
     every counted run."""
@@ -2808,20 +3286,21 @@ TIMING_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def kernel_row(name, source, replaces, launches, worst, timing,
-               slice6, slice7, cases=None) -> dict:
+               slice6, slice7, slice8, cases=None) -> dict:
     """One row of the kernel table: ``launches`` from the main path's
     run, the times and bound from ``timing`` (one case's), the error the
     worst of the checks; ``slice6`` the kernel's launches in phase 15,
     ``path`` in the models' run (a)-(d) and ``check`` in (e); ``slice7``
-    its launches in phase 16; ``cases`` adds every timed case's
-    numbers."""
+    its launches in phase 16, ``slice8`` in phase 17; ``cases`` adds
+    every timed case's numbers."""
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches,
            "max_abs_err": max(worst, timing.get("max_abs_err", 0)),
            **{k: timing.get(k) for k in TIMING_KEYS},
            "slice6_path_launches": slice6["path"],
            "slice6_check_launches": slice6["check"],
-           "slice7_path_launches": slice7}
+           "slice7_path_launches": slice7,
+           "slice8_path_launches": slice8}
     if "launch_floor_ms" in timing:
         row["launch_floor_ms"] = timing["launch_floor_ms"]
     if cases:
@@ -2942,24 +3421,31 @@ def main() -> int:
     t_train = time.perf_counter()
     slice7 = train_phase(dev)["path_launches"]
     train_seconds = time.perf_counter() - t_train
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_slice8 = time.perf_counter()
+    slice8 = examples_cells_phase(dev)["path_launches"]
+    slice8_seconds = time.perf_counter() - t_slice8
     rows = [kernel_row("refine_bitmap_rows",
                        "src/repro_torch/kernels/csrc/bitmap_refine.cu",
                        "src/repro/kernels/bitmap_refine.py:100",
                        launches["dense"], worst, timing,
                        slice6["refine_bitmap_rows"],
-                       slice7["refine_bitmap_rows"]),
+                       slice7["refine_bitmap_rows"],
+                       slice8["refine_bitmap_rows"]),
             kernel_row("refine_bitmap_rows_hier",
                        "src/repro_torch/kernels/csrc/bitmap_refine_hier.cu",
                        "src/repro/kernels/bitmap_refine.py:323",
                        launches["hier"], worst_hier, timing_hier,
                        slice6["refine_bitmap_rows_hier"],
-                       slice7["refine_bitmap_rows_hier"]),
+                       slice7["refine_bitmap_rows_hier"],
+                       slice8["refine_bitmap_rows_hier"]),
             kernel_row("bitmap_spmm",
                        "src/repro_torch/kernels/csrc/bitmap_spmm.cu",
                        "src/repro/kernels/bitmap_spmm.py:68",
                        op_launches["bitmap_spmm"], worst_ops["bitmap_spmm"],
                        op_timing["a human f32"], slice6["bitmap_spmm"],
-                       slice7["bitmap_spmm"],
+                       slice7["bitmap_spmm"], slice8["bitmap_spmm"],
                        {c: op_timing[c] for c in SPMM_TIMED}),
             kernel_row("flash_attention",
                        "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2968,12 +3454,14 @@ def main() -> int:
                        worst_ops["flash_attention"],
                        op_timing["a prefill bf16"],
                        slice6["flash_attention"],
-                       slice7["flash_attention"])]
+                       slice7["flash_attention"],
+                       slice8["flash_attention"])]
     seconds = time.perf_counter() - t_start
     info("done", seconds=seconds, ops_seconds=ops_seconds,
          faults_distributed_seconds=ft_seconds,
          tuner_server_seconds=ts_seconds, models_seconds=models_seconds,
-         train_seconds=train_seconds, within_600_s=seconds <= 600)
+         train_seconds=train_seconds, slice8_seconds=slice8_seconds,
+         within_600_s=seconds <= 600)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -77,12 +77,14 @@ print(len({[str(p) for p in EXAMPLES]!r}))
 
 def test_the_port_examples_import_with_jax_and_repro_blocked():
     assert [p.name for p in EXAMPLES] == ["motif_features_gnn_torch.py",
+                                          "quickstart_torch.py",
+                                          "serve_queries_torch.py",
                                           "train_lm_torch.py"]
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_EXAMPLES], capture_output=True,
         text=True, timeout=120, cwd=ROOT, env={"PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) == 2
+    assert int(out.stdout.strip()) == 4
 
 
 def _imported_roots(path: Path) -> set[str]:
