@@ -202,12 +202,13 @@ Drives the port (``src/repro_torch``), never the JAX package:
     (the dense refine's must be positive): (a)
     ``examples/quickstart_torch.py`` whole (the wave engine's trap(100)
     embeddings the oracle's set) and ``examples/serve_queries_torch.py``
-    at its defaults (50 ten-vertex queries and the heavy query on the
+    at its defaults but 30 of its 50 ten-vertex queries (and the heavy
+    query on the
     yeast-like graph, 2 s budgets: a finished query gives the oracle's
     set, a capped one 1000 valid distinct rows, a timed-out one valid
     rows, counted; the streamed trap(60) query the oracle's set, the
     cancelled one ``cancelled`` with valid rows; the distributed
-    trap(120) the oracle's set), then its ``--server`` part (16 queries)
+    trap(120) the oracle's set), then its ``--server`` part (8 queries)
     against ``python -m repro_torch.server.launch`` on the card (default
     graph and knobs; its dense refine launches, from ``/metrics``,
     positive; SIGTERM exit 0); (b) over a one-rank NCCL group, every cell
@@ -222,19 +223,40 @@ Drives the port (``src/repro_torch``), never the JAX package:
     probe at 1/16 of the cell's sizes allocates) is under 60 GB, run
     with random inputs, finite, and against the CPU by the f32 rule
     where the card's peak is at most 8 GB; the others listed with their
-    bytes; every LM cell's ``fn`` raising ``NotImplementedError`` naming
-    ROADMAP item 9b. ``[examples-*]`` and ``[cells-*]`` lines.
+    bytes. ``[examples-*]`` and ``[cells-*]`` lines;
+18. runs the models' mesh paths, the LM step cells at mesh (1, 1) over a
+    one-rank NCCL group (every collective a one-rank collective), within
+    90 s, every kernel's count set to 0 before and read after (each must
+    stay 0: the reference's models are plain jnp): qwen3-0.6b's four
+    cells at full width, all 28 layers (``train_4k`` at 2 x 4096,
+    ``prefill_32k`` at 1 x 8192, ``decode_32k`` at batch 4 with its
+    32768-position cache, ``long_500k`` with a 131072-position cache),
+    each against the port's local path on the same arguments (the loss
+    within rtol 1e-4, logits within 2 bf16 units of the largest);
+    deepseek-v3-671b at full width cut to one layer (+ MTP):
+    ``prefill_32k`` at 1 x 4096 and ``decode_32k`` at batch 32 (the
+    ``_moe_shard_map`` path with 256 experts on one rank; MLA
+    flash-decoding), and ``train_4k`` at 1 x 2048 with the experts cut to
+    the largest count whose estimated bytes fit 70 GB (the only cut of
+    width); every output finite; the deepseek smoke cells in float32 on
+    the card against the same cells on the CPU (a second process,
+    ``--mesh-cpu-run``) by the f32 rule. Each cell's bytes are reckoned
+    before it runs; ms of a second call, peak bytes and, for deepseek,
+    the share of (token, expert) pairs dropped at capacity are printed.
+    ``[mesh-*]`` lines.
 
 Steps 11-12 print their seconds (together, ``faults-distributed``),
 refine launches (each part's count set to 0 just before it), fault
 counters and fired faults; steps 13-14 theirs (``tuner-server``); step
 15 one ``[models-*]`` line a part and its seconds (``models``), step 16
 its ``[train-*]`` lines and its seconds (``train``), step 17 its
-``[examples-*]`` / ``[cells-*]`` lines and its seconds (``slice8``).
+``[examples-*]`` / ``[cells-*]`` lines and its seconds (``slice8``),
+step 18 its ``[mesh-*]`` lines and its seconds (``slice9``).
 The kernel table's rows carry step 15's launches: (a)-(d)'s
 (``slice6_path_launches``, each 0) and (e)'s
 (``slice6_check_launches``); step 16's (``slice7_path_launches``, each
-0); and step 17's (``slice8_path_launches``).
+0); step 17's (``slice8_path_launches``); and step 18's
+(``slice9_path_launches``, each 0).
 
 Prints one ``[phase]`` info line per step (the ``done`` line gives the
 script's own seconds), then the kernel table as one JSON line, the
@@ -2792,8 +2814,8 @@ def train_phase(dev) -> dict:
 # phase 17: the serving examples and the step cells
 # ----------------------------------------------------------------------
 PHASE17_BUDGET_S = 150           # phase 17's own limit
-SERVE_N_QUERIES = 50             # serve_queries_torch's default, uncut
-SERVER_N_QUERIES = 16            # the example's --server part
+SERVE_N_QUERIES = 30             # of the example's 50 (cut to fit 600 s)
+SERVER_N_QUERIES = 8             # the --server part's (16 before phase 18)
 CELL_PEAK_LIMIT = 60e9           # (b) runs a cell estimated under this
 CELL_CPU_LIMIT = 8e9             # ... and against the CPU if its peak is below
 PROBE_SCALE = 16                 # the peak probe's sizes: 1/16 of the cell's
@@ -3169,30 +3191,11 @@ def model_cells(dev, mesh, peak_limit=CELL_PEAK_LIMIT,
     return {"ran": out, "not_fitting": skipped}
 
 
-def lm_cells(mesh) -> int:
-    """Every LM cell's ``fn`` must raise naming ROADMAP item 9b."""
-    from repro_torch.configs.registry import ARCHS, all_cells
-    from repro_torch.launch import steps
-    n = 0
-    for arch, shape in all_cells():
-        if ARCHS[arch].family != "lm":
-            continue
-        cell = steps.build_cell(arch, shape, mesh)
-        try:
-            cell.fn(*cell.args)
-        except NotImplementedError as exc:
-            require("item 9b" in str(exc), f"{arch}/{shape}: {exc}")
-            n += 1
-        else:
-            raise SmokeFailure(f"{arch}/{shape}: the LM cell ran")
-    return n
-
-
 def cells_phase(dev, peak_limit=CELL_PEAK_LIMIT,
                 cpu_limit=CELL_CPU_LIMIT) -> dict:
     """Phase 17 (b): every cell built at mesh (1, 1) over a one-rank
     process group on ``dev``, its argument bytes printed; the matcher
-    cells, the model cells that fit and the LM cells' refusal."""
+    cells and the model cells that fit (the LM cells run in phase 18)."""
     import torch.distributed as dist
     from repro_torch.configs.registry import all_cells
     from repro_torch.launch import mesh as meshes, steps
@@ -3205,8 +3208,6 @@ def cells_phase(dev, peak_limit=CELL_PEAK_LIMIT,
         parts = {"matcher": matcher_cells(dev, mesh)}
         parts["models"] = model_cells(dev, mesh, peak_limit, cpu_limit)
         info("cells-models", **parts["models"])
-        parts["lm_refused"] = lm_cells(mesh)
-        info("cells-lm", refused=parts["lm_refused"])
     finally:
         dist.destroy_process_group()
     return parts
@@ -3233,6 +3234,317 @@ def examples_cells_phase(dev) -> dict:
          within_150_s=seconds <= PHASE17_BUDGET_S)
     require(seconds <= PHASE17_BUDGET_S,
             f"phase 17 took {seconds:.1f} s (limit {PHASE17_BUDGET_S})")
+    return parts
+
+
+# ----------------------------------------------------------------------
+# phase 18: the models' mesh paths (the LM step cells at mesh (1, 1))
+# ----------------------------------------------------------------------
+PHASE18_BUDGET_S = 90            # phase 18's own limit
+QWEN_CELLS = {                   # (kind, dims): each cut named in PERF.md
+    "train_4k": ("train", {"global_batch": 2, "seq_len": 4096}),
+    "prefill_32k": ("prefill", {"global_batch": 1, "seq_len": 8192}),
+    "decode_32k": ("decode", {"global_batch": 4, "kv_len": 32768}),
+    "long_500k": ("decode", {"global_batch": 1, "kv_len": 131072})}
+DEEPSEEK_CELLS = {
+    "prefill_32k": ("prefill", {"global_batch": 1, "seq_len": 4096}),
+    "decode_32k": ("decode", {"global_batch": 32, "kv_len": 32768}),
+    "train_4k": ("train", {"global_batch": 1, "seq_len": 2048})}
+DEEPSEEK_EXPERT_CHOICES = (256, 128, 64, 32, 16, 8)   # train_4k's cut
+CELL_EST_MAX_BYTES = 70e9        # a cell runs if its estimate is below
+SMOKE_CELLS = {"train": {"global_batch": 2, "seq_len": 16},
+               "prefill": {"global_batch": 2, "seq_len": 16},
+               "decode": {"global_batch": 2, "kv_len": 16}}
+QWEN_LOGIT_ATOL_UNITS = 2        # mesh vs local path, bf16 units of max|logit|
+
+
+def lm_cell_spec(arch: str, n_layers=None, n_experts=None, smoke=False):
+    """The arch's spec with its config cut: ``n_layers``, ``n_experts``,
+    or the float32 smoke config."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    spec = get_arch(arch)
+    cfg = f32_config(spec.smoke_config) if smoke else spec.config
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if n_experts is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=n_experts))
+    return dataclasses.replace(spec, config=cfg)
+
+
+def estimated_bytes(cell, kind: str) -> float:
+    """A cell's arguments, plus for a train step its gradients and seven
+    float32 copies of its largest leaf (AdamW's per-leaf temporaries)."""
+    from repro_torch.launch import steps
+    est = cell.arg_bytes()
+    if kind == "train":
+        params = cell.args[0]
+        est += steps.tree_bytes(params) + 7 * 4 * max(
+            t.numel() for _, t in steps.tree_leaves_with_path(params))
+    return float(est)
+
+
+def deepseek_train_experts(mesh) -> tuple[int, float]:
+    """The largest expert count of ``DEEPSEEK_EXPERT_CHOICES`` whose
+    one-layer ``train_4k`` cell (at its cut dims) is estimated under
+    ``CELL_EST_MAX_BYTES``, and that estimate."""
+    from repro_torch.configs.common import ShapeCell
+    from repro_torch.launch import steps
+    kind, dims = DEEPSEEK_CELLS["train_4k"]
+    for e in DEEPSEEK_EXPERT_CHOICES:
+        spec = lm_cell_spec("deepseek-v3-671b", n_layers=1, n_experts=e)
+        cell = steps.build_cell_of(spec, ShapeCell("train_4k", kind, dims),
+                                   mesh)
+        est = estimated_bytes(cell, kind)
+        if est <= CELL_EST_MAX_BYTES:
+            return e, est
+    raise SmokeFailure("no expert count of deepseek train_4k fits")
+
+
+class DropCounter:
+    """Counts the pairs ``moe._local_sort_dispatch`` drops at capacity
+    (real keys whose slot is the trash slot), by stage: the send stage
+    then the expert stage of each layer's call."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.real = moe, moe._local_sort_dispatch
+        self.kept = [0, 0]
+        self.total = [0, 0]
+        self.calls = 0
+
+    def __enter__(self):
+        def spy(flat, keys, n_buckets, cap):
+            out = self.real(flat, keys, n_buckets, cap)
+            stage = self.calls % 2
+            real = keys >= 0
+            self.total[stage] += int(real.sum())
+            self.kept[stage] += int((out[2] < n_buckets * cap).sum())
+            self.calls += 1
+            return out
+        self.moe._local_sort_dispatch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._local_sort_dispatch = self.real
+
+    def share(self) -> float:
+        """Dropped (token, expert) pairs over all pairs routed."""
+        return 1.0 - self.kept[1] / max(1, self.total[0])
+
+
+def run_lm_cell(dev, mesh, spec, name: str, kind: str, dims: dict,
+                seed: int, local=None, drops: bool = False) -> dict:
+    """One LM cell of ``spec`` at ``dims`` on ``dev``: its bytes reckoned
+    first (refused past ``CELL_EST_MAX_BYTES``), arguments drawn on the
+    card (``steps.example_args``) and placed on ``mesh`` as ``DTensor``s
+    by the cell's specs (``sharding.distribute``: on one rank, without a
+    copy), a first call (checked: finite; its result gathered whole by
+    ``sharding.full`` against ``local``, the port's local path on the
+    same arguments, where given) and a timed second call.
+    ``peak_bytes`` is the first call's peak
+    (read before the checks, whose float copies of the outputs are
+    larger than the path's own temporaries), ``live_bytes`` what was
+    allocated when it started: the arguments and the local path's
+    output."""
+    import torch
+    from repro_torch.configs.common import ShapeCell
+    from repro_torch.launch import sharding, steps
+    shape = ShapeCell(name, kind, dims)
+    cell = steps.build_cell_of(spec, shape, mesh)
+    est = estimated_bytes(cell, kind)
+    require(est <= CELL_EST_MAX_BYTES,
+            f"{spec.arch_id}/{name}: estimated {est:.3g} B")
+    row = {"dims": dims, "arg_bytes": cell.arg_bytes(), "est_bytes": est,
+           "base_bytes": torch.cuda.memory_allocated()}
+    args = steps.example_args(spec, shape, cell, seed=seed, device=dev)
+    want = local(cell, args) if local is not None else None
+    args = sharding.distribute(args, cell.in_specs, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    row["live_bytes"] = torch.cuda.memory_allocated()
+    counter = DropCounter() if drops else None
+    if counter is not None:
+        with counter:
+            out = cell.fn(*args)
+        row["dropped_share"] = counter.share()
+        row["routed_pairs"] = counter.total[0]
+    else:
+        out = cell.fn(*args)
+    torch.cuda.synchronize()
+    row["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out = sharding.full(out)
+    floats = [t for _, t in sharding.tree_leaves_with_path(out)
+              if t.is_floating_point()]
+    require_finite(f"{spec.arch_id}/{name}", *floats)
+    if kind == "train":
+        row["loss"] = float(out[2])
+    if want is not None:
+        got = {"train": lambda: out[2], "prefill": lambda: out,
+               "decode": lambda: out[0]}[kind]()
+        if kind == "train":
+            err = abs(float(got) - float(want))
+            require(err <= 1e-4 * abs(float(want)),
+                    f"qwen3 {name}: mesh loss {float(got)} vs local "
+                    f"{float(want)}")
+        else:
+            atol = QWEN_LOGIT_ATOL_UNITS * float(want.float().abs().max()) \
+                / 128
+            err, bad = violations(got, want, (0.0, atol))
+            require(bad == 0, f"qwen3 {name}: {bad} logits past {atol:.3g}")
+        row["vs_local_max_abs_err"] = err
+    del out, want
+    t0 = time.perf_counter()
+    cell.fn(*args)
+    torch.cuda.synchronize()
+    row["ms"] = 1e3 * (time.perf_counter() - t0)
+    del args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def qwen_local(kind: str, cfg):
+    """The port's local path (``cfg``, without mesh fields) on a cell's
+    arguments, for the mesh path at (1, 1) to equal: the loss of a train
+    step, the logits of a prefill, the logits of a decode step (on a copy
+    of the state, which the step writes)."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    @torch.no_grad()
+    def local(cell, args):
+        model = steps.bind_lm(cfg, args[0])
+        if kind == "train":
+            return T.lm_loss(model, cfg, args[2])
+        if kind == "prefill":
+            return T.lm_logits(model, cfg, args[1])
+        state = args[1]
+        copy = {"cache": tuple(t.clone() for t in state["cache"]),
+                "length": int(state["length"])}
+        return T.lm_decode_step(model, cfg, args[2], copy)[0]
+    return local
+
+
+def mesh_cells_cpu_run(out_path: str) -> int:
+    """Phase 18's CPU side, in its own process: the deepseek smoke cells
+    (float32) over a one-rank gloo group on the CPU; writes their
+    outputs."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.common import ShapeCell
+    from repro_torch.launch import mesh as meshes, sharding, steps
+    torch.set_num_threads(4)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", store=dist.FileStore(
+            str(Path(tmp) / "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = meshes.make_host_test_mesh((1, 1))
+            spec = lm_cell_spec("deepseek-v3-671b", smoke=True)
+            out = {}
+            for kind, dims in SMOKE_CELLS.items():
+                shape = ShapeCell(kind, kind, dims)
+                cell = steps.build_cell_of(spec, shape, mesh)
+                args = steps.example_args(spec, shape, cell, seed=18,
+                                          device="cpu")
+                out[kind] = sharding.full(cell.fn(*sharding.distribute(
+                    args, cell.in_specs, mesh)))
+        finally:
+            dist.destroy_process_group()
+    torch.save(out, out_path)
+    return 0
+
+
+def deepseek_smoke_against_cpu(dev, mesh, cpu_out: dict) -> dict:
+    """The deepseek smoke cells (float32) on the card against the same
+    cells' outputs on the CPU (``mesh_cells_cpu_run``), every lane by the
+    f32 rule (``F32_RULE``), each run on ``DTensor`` arguments and gathered
+    whole."""
+    from repro_torch.configs.common import ShapeCell
+    from repro_torch.launch import sharding, steps
+    spec = lm_cell_spec("deepseek-v3-671b", smoke=True)
+    res = {}
+    for kind, dims in SMOKE_CELLS.items():
+        shape = ShapeCell(kind, kind, dims)
+        cell = steps.build_cell_of(spec, shape, mesh)
+        args = to_device(steps.example_args(spec, shape, cell, seed=18,
+                                            device="cpu"), dev)
+        got = sharding.full(cell.fn(*sharding.distribute(
+            args, cell.in_specs, mesh)))
+        res[kind] = compare_trees(f"deepseek smoke {kind}", got,
+                                  cpu_out[kind])
+    return res
+
+
+def mesh_paths_phase(dev) -> dict:
+    """Phase 18: the 20 LM cells' mesh paths at mesh (1, 1) over a
+    one-rank NCCL group, within ``PHASE18_BUDGET_S``: qwen3-0.6b's four
+    cells at full width (every layer), each against the port's local path
+    on the same arguments; deepseek-v3-671b's prefill and decode at full
+    width cut to one layer, and its train step also cut to the largest
+    expert count whose estimate fits; the deepseek smoke cells against
+    the CPU. Each cell's arguments are ``DTensor``s placed by its specs
+    (``sharding.distribute``), as on any mesh. Every kernel's count is
+    set to 0 before and read after: the reference's models are plain
+    jnp, so each must stay 0."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as meshes
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu_path = str(Path(tmp) / "mesh_cells_cpu.pt")
+        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                 "--mesh-cpu-run", cpu_path],
+                                stdout=subprocess.DEVNULL)
+        try:
+            single_rank_group(dev)
+            try:
+                mesh = meshes.make_host_test_mesh((1, 1))
+                reset_kernel_launches()
+                parts = {"qwen3": {}, "deepseek": {}}
+                qwen = lm_cell_spec("qwen3-0.6b")
+                for i, (name, (kind, dims)) in enumerate(QWEN_CELLS.items()):
+                    parts["qwen3"][name] = run_lm_cell(
+                        dev, mesh, qwen, name, kind, dims, seed=180 + i,
+                        local=qwen_local(kind, qwen.config))
+                    info(f"mesh-qwen3-{name}", **parts["qwen3"][name])
+                e, e_est = deepseek_train_experts(mesh)
+                for i, (name, (kind, dims)) in enumerate(
+                        DEEPSEEK_CELLS.items()):
+                    spec = lm_cell_spec("deepseek-v3-671b", n_layers=1,
+                                        n_experts=e if kind == "train"
+                                        else None)
+                    row = run_lm_cell(dev, mesh, spec, name, kind, dims,
+                                      seed=190 + i, drops=True)
+                    row["n_experts"] = spec.config.moe.n_experts
+                    parts["deepseek"][name] = row
+                    info(f"mesh-deepseek-{name}", **row)
+                torch.cuda.synchronize()
+                parts["path_launches"] = kernel_launches()
+                rc = proc.wait()
+                require(rc == 0, f"the CPU side failed (exit code {rc})")
+                parts["smoke"] = deepseek_smoke_against_cpu(
+                    dev, mesh, torch.load(cpu_path))
+                info("mesh-deepseek-smoke-vs-cpu", **parts["smoke"])
+            finally:
+                dist.destroy_process_group()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    info("slice9-path", launches=parts["path_launches"],
+         deepseek_train_experts=e, deepseek_train_est_bytes=e_est)
+    require(not any(parts["path_launches"].values()),
+            f"phase 18 launched a kernel: {parts['path_launches']}")
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    info("slice9", seconds=seconds,
+         within_90_s=seconds <= PHASE18_BUDGET_S)
+    require(seconds <= PHASE18_BUDGET_S,
+            f"phase 18 took {seconds:.1f} s (limit {PHASE18_BUDGET_S})")
     return parts
 
 
@@ -3286,13 +3598,13 @@ TIMING_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def kernel_row(name, source, replaces, launches, worst, timing,
-               slice6, slice7, slice8, cases=None) -> dict:
+               slice6, slice7, slice8, slice9, cases=None) -> dict:
     """One row of the kernel table: ``launches`` from the main path's
     run, the times and bound from ``timing`` (one case's), the error the
     worst of the checks; ``slice6`` the kernel's launches in phase 15,
     ``path`` in the models' run (a)-(d) and ``check`` in (e); ``slice7``
-    its launches in phase 16, ``slice8`` in phase 17; ``cases`` adds
-    every timed case's numbers."""
+    its launches in phase 16, ``slice8`` in phase 17, ``slice9`` in
+    phase 18; ``cases`` adds every timed case's numbers."""
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches,
            "max_abs_err": max(worst, timing.get("max_abs_err", 0)),
@@ -3300,7 +3612,8 @@ def kernel_row(name, source, replaces, launches, worst, timing,
            "slice6_path_launches": slice6["path"],
            "slice6_check_launches": slice6["check"],
            "slice7_path_launches": slice7,
-           "slice8_path_launches": slice8}
+           "slice8_path_launches": slice8,
+           "slice9_path_launches": slice9}
     if "launch_floor_ms" in timing:
         row["launch_floor_ms"] = timing["launch_floor_ms"]
     if cases:
@@ -3426,26 +3739,34 @@ def main() -> int:
     t_slice8 = time.perf_counter()
     slice8 = examples_cells_phase(dev)["path_launches"]
     slice8_seconds = time.perf_counter() - t_slice8
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_slice9 = time.perf_counter()
+    slice9 = mesh_paths_phase(dev)["path_launches"]
+    slice9_seconds = time.perf_counter() - t_slice9
     rows = [kernel_row("refine_bitmap_rows",
                        "src/repro_torch/kernels/csrc/bitmap_refine.cu",
                        "src/repro/kernels/bitmap_refine.py:100",
                        launches["dense"], worst, timing,
                        slice6["refine_bitmap_rows"],
                        slice7["refine_bitmap_rows"],
-                       slice8["refine_bitmap_rows"]),
+                       slice8["refine_bitmap_rows"],
+                       slice9["refine_bitmap_rows"]),
             kernel_row("refine_bitmap_rows_hier",
                        "src/repro_torch/kernels/csrc/bitmap_refine_hier.cu",
                        "src/repro/kernels/bitmap_refine.py:323",
                        launches["hier"], worst_hier, timing_hier,
                        slice6["refine_bitmap_rows_hier"],
                        slice7["refine_bitmap_rows_hier"],
-                       slice8["refine_bitmap_rows_hier"]),
+                       slice8["refine_bitmap_rows_hier"],
+                       slice9["refine_bitmap_rows_hier"]),
             kernel_row("bitmap_spmm",
                        "src/repro_torch/kernels/csrc/bitmap_spmm.cu",
                        "src/repro/kernels/bitmap_spmm.py:68",
                        op_launches["bitmap_spmm"], worst_ops["bitmap_spmm"],
                        op_timing["a human f32"], slice6["bitmap_spmm"],
                        slice7["bitmap_spmm"], slice8["bitmap_spmm"],
+                       slice9["bitmap_spmm"],
                        {c: op_timing[c] for c in SPMM_TIMED}),
             kernel_row("flash_attention",
                        "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3455,13 +3776,14 @@ def main() -> int:
                        op_timing["a prefill bf16"],
                        slice6["flash_attention"],
                        slice7["flash_attention"],
-                       slice8["flash_attention"])]
+                       slice8["flash_attention"],
+                       slice9["flash_attention"])]
     seconds = time.perf_counter() - t_start
     info("done", seconds=seconds, ops_seconds=ops_seconds,
          faults_distributed_seconds=ft_seconds,
          tuner_server_seconds=ts_seconds, models_seconds=models_seconds,
          train_seconds=train_seconds, slice8_seconds=slice8_seconds,
-         within_600_s=seconds <= 600)
+         slice9_seconds=slice9_seconds, within_600_s=seconds <= 600)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3474,6 +3796,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--plain-run"]:
             sys.exit(plain_run(sys.argv[2]))
+        if sys.argv[1:2] == ["--mesh-cpu-run"]:
+            sys.exit(mesh_cells_cpu_run(sys.argv[2]))
         sys.exit(main())
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)

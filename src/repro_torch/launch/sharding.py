@@ -22,12 +22,14 @@ through :func:`tree_map` untouched.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import re
 from typing import Any, Callable
 
 import torch
-from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 from .mesh import axis_sizes
 
@@ -195,7 +197,107 @@ def placements(spec: P, mesh) -> list:
     return out
 
 
+def spec_of(t: DTensor) -> P:
+    """The spec of a ``DTensor``'s placements (``placements``' inverse):
+    for each dimension the mesh axes splitting it, in mesh order."""
+    names = t.device_mesh.mesh_dim_names
+    axes: list = [[] for _ in range(t.dim())]
+    for i, pl in enumerate(t.placements):
+        if isinstance(pl, Shard):
+            axes[pl.dim].append(names[i])
+    return P(*(None if not a else a[0] if len(a) == 1 else tuple(a)
+               for a in axes))
+
+
 def shard(t: torch.Tensor, spec: P, mesh):
     """``t`` distributed over ``mesh`` by ``spec`` (a ``DTensor``; on a
-    ``meta`` tensor, ``.to_local().shape`` is this rank's shard shape)."""
+    ``meta`` tensor, ``.to_local().shape`` is this rank's shard shape).
+    On a one-rank mesh the shard is ``t`` itself, not a copy."""
+    if mesh.size() == 1:
+        return DTensor.from_local(t, mesh, placements(spec, mesh),
+                                  run_check=False)
     return distribute_tensor(t, mesh, placements(spec, mesh))
+
+
+def distribute(tree, specs, mesh):
+    """Every tensor leaf of ``tree`` as a ``DTensor`` placed on ``mesh``
+    by its spec in ``specs`` (a tree of the same structure); other leaves
+    pass through. On several ranks every rank passes the same values
+    (``distribute_tensor`` takes rank 0's)."""
+    if torch.is_tensor(tree):
+        return shard(tree, specs, mesh)
+    kids = _children(tree)
+    if kids is None:
+        return tree
+    spec_kids = dict(_children(specs))
+    out = [distribute(v, spec_kids[k], mesh) for k, v in kids]
+    if isinstance(tree, dict):
+        return dict(zip(tree, out))
+    return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
+
+
+def full(tree):
+    """``tree`` with every ``DTensor`` leaf gathered whole
+    (``full_tensor``) on every rank; on a one-rank mesh a leaf's local
+    tensor is the whole, and is returned without a copy."""
+    def whole(t):
+        if not isinstance(t, DTensor):
+            return t
+        if t.device_mesh.size() == 1:
+            return t.to_local()
+        return t.full_tensor()
+    return tree_map(whole, tree)
+
+
+# ----------------------------------------------------------- DTensor cost
+def _greedy_redistribute_cost(src, dst) -> float:
+    """DTensor's ``redistribute_cost`` with every path planned greedily
+    (its default for layouts in mesh order); a path the greedy planner
+    cannot plan costs infinity."""
+    from torch.distributed.tensor import _collective_utils as cu
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor._redistribute import get_redistribute_planner
+    from torch.distributed.tensor.placement_types import _StridedShard
+    default = all(DTensorSpec.is_default_device_order(o)
+                  for o in (src.shard_order, dst.shard_order))
+    strided = any(isinstance(p, _StridedShard)
+                  for p in (*src.placements, *dst.placements))
+    if default and not strided:
+        return cu.redistribute_cost(src, dst)
+    if src.placements == dst.placements:
+        return 0.0
+    try:
+        infos = get_redistribute_planner(
+            src.mesh, src.tensor_meta).generate_greedy_transform_infos(src,
+                                                                        dst)
+    except (AssertionError, NotImplementedError, ValueError, KeyError):
+        return math.inf
+    topo = cu.MeshTopoInfo.build_from_mesh(src.mesh)
+    gb = cu.spec_to_bytes(src) / src.num_shards / 1024 ** 3
+    cost = 0.0
+    for info in infos:
+        step, gb = cu._compute_placement_transition_cost(
+            *info.src_dst_placements, topo, info.mesh_dim, gb)
+        cost += step
+    return cost
+
+
+@contextlib.contextmanager
+def greedy_layout_search():
+    """Run DTensor ops with candidate layouts ranked by greedy plans.
+
+    DTensor picks each op's layout by the cost of redistributing its
+    inputs into every candidate. A candidate with a dimension split over
+    two mesh axes (a batch over ``("pod", "data")``) is costed by a graph
+    search whose state space grows with the mesh's rank: minutes for one
+    small model on a three-axis mesh. Inside this context such candidates
+    are costed by DTensor's greedy planner, as every other candidate is.
+    Only the ranking changes; the redistributions that run are planned by
+    DTensor as always, so values do not depend on it."""
+    from torch.distributed.tensor._ops import utils
+    old = utils.redistribute_cost
+    utils.redistribute_cost = _greedy_redistribute_cost
+    try:
+        yield
+    finally:
+        utils.redistribute_cost = old

@@ -20,24 +20,60 @@ What the steps do on real tensors, family by family:
   (the Δ store and stack banks are updated in place and returned in the
   reference's output positions); :func:`matcher_args` builds real inputs
   for them;
-* the LM cells need the models' mesh paths (vocab-parallel lookup and
-  NLL, the shard_map MoE dispatch, MLA flash-decoding), which are not
-  ported: their ``fn`` raises ``NotImplementedError`` (ROADMAP queue 1
-  item 9b). Their shapes are built on ``meta`` from the config without
-  the mesh fields, which the port's configs refuse; the fields the
-  reference would set are kept in ``Cell.static["mesh_fields"]``.
+* the LM cells run the models' mesh paths: ``fn`` builds the config
+  with the mesh fields the reference sets (``Cell.static["cfg"]``; the
+  fields alone in ``Cell.static["mesh_fields"]``), binds the parameter
+  tree (``bind_lm``; each layer a view of its stacked leaf) and runs
+  ``lm_loss``, its backward and ``adamw_update`` in place; ``lm_logits``;
+  or one ``lm_decode_step`` writing the donated caches in place (the
+  state's 0-d ``length`` is read as the host int the port's decode takes,
+  0 on ``meta``, and advanced in place). :func:`example_args` draws valid
+  inputs for them.
 
-``Cell.lower`` (the reference's ``jax.jit(...).lower``) belongs to the
-dry-run, ROADMAP queue 1 item 9c, and raises.
+Under a mesh the arguments are ``DTensor``s placed by ``in_specs``
+(``sharding.distribute``), at mesh (1, 1) too; an LM cell's ``fn`` on
+plain tensors raises. The ``shard_map`` bodies run
+the reference's collectives (``models.layers``). Outside them DTensor
+places each op; these steps steer it and are layout only (values
+unchanged, no collective of a reference ``shard_map`` body replaced):
+
+* ``layers.constrain`` — the reference's ``with_sharding_constraint``;
+* ``layers.reshape`` — replicates a dimension a reshape cannot carry
+  sharded (a split whose leading size the shard count does not divide,
+  a merge with a sharded inner dimension; GQA's head split);
+* ``layers.einsum`` (and ``dense``'s product) — one einsum of the local
+  shards: on each mesh axis an operand takes the other's split letter
+  (or, split on another, the smaller is), no size-1 dimension split;
+* ``layers.softmax`` — max, exp and sum, so a split last dimension stays
+  split (only the reductions' results cross ranks);
+* ``layers.write_rows`` — a decode step's cache rows, each rank writing
+  the rows of its own sequence shard;
+* ``moe._moe_replicated`` — a batch-1 decode step's routing and combine
+  on every rank, its experts where their weights lie;
+* ``layers.query_rows`` — attention's queries split over batch and
+  sequence, keys and values over batch only (GQA's ``attn_apply`` and
+  MLA's prefill chunks);
+* ``layers.dense``'s weight, gathered over every mesh axis that splits
+  the activations' rows (ZeRO-3);
+* ``_grad_like`` — each gradient in its parameter's layout before
+  AdamW.
+
+DTensor ranks candidate layouts under ``sharding.greedy_layout_search``
+(``_spmd``). There is no ``Cell.lower``: the dry-run
+(``launch.dryrun``) counts a run of ``fn`` on ``meta`` arguments
+(``roofline.hlo_cost``) instead of compiling.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from .. import convert
 from ..configs.common import ArchSpec, ShapeCell
@@ -47,15 +83,13 @@ from ..models.equivariant import (Equiv, equiv_batched_loss,
                                   equiv_energy_loss)
 from ..models.gnn import GNN
 from ..models.recsys import DIN
-from ..models.transformer import init_decode_state, lm_init
+from ..models.transformer import (init_decode_state, lm_decode_step,
+                                  lm_init, lm_logits, lm_loss)
 from ..training.optimizer import AdamWConfig, adamw_init, adamw_update
 from .mesh import axis_sizes
-from .sharding import (P, _axis_size, _sanitize, dp, opt_specs,
-                       param_specs, tree_leaves_with_path, tree_map)
-
-LM_MESH_ITEM = "ROADMAP queue 1 item 9b (the models' mesh paths)"
-DRYRUN_ITEM = "ROADMAP queue 1 item 9c (the dry-run)"
-
+from .sharding import (P, _axis_size, _sanitize, dp, greedy_layout_search,
+                       opt_specs, param_specs, tree_leaves_with_path,
+                       tree_map, tree_map_with_path)
 
 def meta(shape, dtype) -> torch.Tensor:
     """A shape-and-dtype placeholder (``jax.ShapeDtypeStruct``)."""
@@ -79,11 +113,6 @@ class Cell:
     donate: tuple = ()
     static: dict | None = None
 
-    def lower(self, mesh):
-        raise NotImplementedError(
-            f"Cell.lower of {self.arch_id}/{self.shape_name}: the port has "
-            f"no compiled lowering yet, {DRYRUN_ITEM}")
-
     def arg_bytes(self) -> int:
         return tree_bytes(self.args)
 
@@ -94,14 +123,6 @@ def _opt_cfg(spec: ArchSpec) -> AdamWConfig:
 
 
 # ====================================================================== LM
-def _lm_pending(arch_id: str, shape_name: str) -> Callable:
-    def step(*args, **kwargs):
-        raise NotImplementedError(
-            f"{arch_id}/{shape_name} runs the models' mesh paths, which "
-            f"the port does not have yet: {LM_MESH_ITEM}")
-    return step
-
-
 def _lm_mesh_fields(cfg, mesh, batch_div: bool,
                     seq_axis: str | None) -> dict:
     """The mesh fields the reference sets on the config (``dp_axis``,
@@ -119,10 +140,20 @@ def _lm_mesh_fields(cfg, mesh, batch_div: bool,
     return fields
 
 
+def _with_fields(cfg, fields: dict):
+    """``cfg`` with the mesh fields set, the MoE / MLA ones on their
+    sub-configs."""
+    over = {k: v for k, v in fields.items() if k not in ("moe", "mla")}
+    for sub in ("moe", "mla"):
+        if sub in fields:
+            over[sub] = dataclasses.replace(getattr(cfg, sub), **fields[sub])
+    return dataclasses.replace(cfg, **over)
+
+
 def _lm_param_trees(spec: ArchSpec, mesh, batch_div: bool = True,
                     seq_axis: str | None = "model"):
-    cfg = spec.config
-    fields = _lm_mesh_fields(cfg, mesh, batch_div, seq_axis)
+    fields = _lm_mesh_fields(spec.config, mesh, batch_div, seq_axis)
+    cfg = _with_fields(spec.config, fields)
     model = lm_init(None, cfg, device="meta")
     pshape = convert.lm_tree(model)
     pspec = param_specs(pshape, mesh, "lm")
@@ -133,19 +164,26 @@ def _lm_param_trees(spec: ArchSpec, mesh, batch_div: bool = True,
     return cfg, fields, pshape, pspec, oshape, ospec, ocfg
 
 
+def bind_lm(cfg, params) -> nn.Module:
+    """An ``LM`` of ``cfg`` whose parameters are the reference-shaped
+    tree ``params``' tensors (each layer a view of its stacked leaf)."""
+    return _bind(lm_init(None, cfg, device="meta"), params, ("layers",))
+
+
 def _lm_train_cell(spec: ArchSpec, cell: ShapeCell, mesh) -> Cell:
-    cfg, fields, pshape, pspec, oshape, ospec, _ = _lm_param_trees(spec,
-                                                                   mesh)
+    cfg, fields, pshape, pspec, oshape, ospec, ocfg = _lm_param_trees(
+        spec, mesh)
     b = cell.dims["global_batch"]
     s = cell.dims["seq_len"]
     batch = {"tokens": meta((b, s), torch.int32),
              "targets": meta((b, s), torch.int32)}
     bspec = {"tokens": P(dp(mesh), None), "targets": P(dp(mesh), None)}
-    return Cell(spec.arch_id, cell.name, _lm_pending(spec.arch_id,
-                                                     cell.name),
+    fn = _train_fn(lambda: lm_init(None, cfg, device="meta"),
+                   lambda m, bt: lm_loss(m, cfg, bt), ocfg, ("layers",))
+    return Cell(spec.arch_id, cell.name, fn,
                 (pshape, oshape, batch), (pspec, ospec, bspec),
                 (pspec, ospec, P()), donate=(0, 1),
-                static={"mesh_fields": fields})
+                static={"mesh_fields": fields, "cfg": cfg})
 
 
 def _lm_prefill_cell(spec: ArchSpec, cell: ShapeCell, mesh) -> Cell:
@@ -153,11 +191,24 @@ def _lm_prefill_cell(spec: ArchSpec, cell: ShapeCell, mesh) -> Cell:
     b = cell.dims["global_batch"]
     s = cell.dims["seq_len"]
     tokens = meta((b, s), torch.int32)
-    return Cell(spec.arch_id, cell.name, _lm_pending(spec.arch_id,
-                                                     cell.name),
+
+    @torch.no_grad()
+    def prefill(params, tokens):
+        with _spmd():
+            return lm_logits(bind_lm(cfg, params), cfg, tokens)
+
+    return Cell(spec.arch_id, cell.name, prefill,
                 (pshape, tokens), (pspec, P(dp(mesh), None)),
                 P(dp(mesh), None, "model"),
-                static={"mesh_fields": fields})
+                static={"mesh_fields": fields, "cfg": cfg})
+
+
+def _host_length(length) -> int:
+    """The decode state's 0-d ``length`` as the host int the port's decode
+    step takes (0 on ``meta``, where only shapes count)."""
+    if isinstance(length, DTensor):
+        length = length.to_local()
+    return 0 if length.is_meta else int(length)
 
 
 def _lm_decode_cell(spec: ArchSpec, cell: ShapeCell, mesh) -> Cell:
@@ -174,6 +225,7 @@ def _lm_decode_cell(spec: ArchSpec, cell: ShapeCell, mesh) -> Cell:
         fields["mla"] = {**fields["mla"], "mesh": mesh,
                          "decode_flash": True, "dp_axis": dp(mesh),
                          "tp_axis": "model"}
+        cfg = _with_fields(spec.config, fields)
     state_shape = init_decode_state(cfg, b, kv, device="meta")
     state_shape["length"] = meta((), torch.int32)
     dpa = dp(mesh)
@@ -203,21 +255,35 @@ def _lm_decode_cell(spec: ArchSpec, cell: ShapeCell, mesh) -> Cell:
     sspec = tree_map(cache_spec, state_shape)
     tokens = meta((b, 1), torch.int32)
     tspec = P(dpa, None) if b_div else P(None, None)
-    return Cell(spec.arch_id, cell.name, _lm_pending(spec.arch_id,
-                                                     cell.name),
+
+    @torch.no_grad()
+    def serve_step(params, state, tokens):
+        length = state["length"]
+        with _spmd():
+            logits, new = lm_decode_step(
+                bind_lm(cfg, params), cfg, tokens,
+                {"cache": state["cache"], "length": _host_length(length)})
+        # the reference returns the per-layer lengths zeroed and the
+        # step's length as a 0-d int32
+        state["cache"][2].zero_()
+        length.add_(new["length"] - _host_length(length))
+        return logits, state
+
+    return Cell(spec.arch_id, cell.name, serve_step,
                 (pshape, state_shape, tokens), (pspec, sspec, tspec),
                 (_sanitize(P(dpa, None, "model"),
                            (b, 1, cfg.vocab), mesh), sspec),
                 donate=(1,),
-                static={"mesh_fields": fields, "decode_flash": flash})
+                static={"mesh_fields": fields, "decode_flash": flash,
+                        "cfg": cfg})
 
 
 # ============================================== modules bound to a tree
-def _bind(module: nn.Module, tree) -> nn.Module:
+def _bind(module: nn.Module, tree, stacked=()) -> nn.Module:
     """``module`` (built on ``"meta"``) with the tree's tensors as its
     parameters, sharing their storage: an in-place update of a parameter
-    updates the tree."""
-    flat = convert.flatten_params(tree)
+    updates the tree (a stacked leaf's layers are views of it)."""
+    flat = convert.flatten_params(tree, stacked)
     params = dict(module.named_parameters())
     if set(flat) != set(params):
         raise KeyError(f"tree and module differ: "
@@ -233,21 +299,40 @@ def _bind(module: nn.Module, tree) -> nn.Module:
     return module
 
 
-def _train_fn(make: Callable, loss_of: Callable, ocfg: AdamWConfig
-              ) -> Callable:
+@contextlib.contextmanager
+def _spmd():
+    """Where a cell's ``fn`` runs on ``DTensor``s: plain tensors made
+    inside (positions, masks, softmax state) count as replicated, and
+    layouts are ranked by greedy plans (``sharding.greedy_layout_search``)."""
+    with implicit_replication(), greedy_layout_search():
+        yield
+
+
+def _grad_like(p):
+    """``p.grad`` in ``p``'s layout (a ``DTensor`` gradient may come back
+    partial or otherwise placed: a layout change only)."""
+    g = p.grad
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        g = g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _train_fn(make: Callable, loss_of: Callable, ocfg: AdamWConfig,
+              stacked=()) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     loss)``: the loss's backward and one AdamW step over the reference's
     flatten order, params and moments updated in place."""
     def train_step(params, opt_state, batch):
-        model = _bind(make(), params)
-        opt = {"m": convert.flatten_params(opt_state["m"]),
-               "v": convert.flatten_params(opt_state["v"]),
-               "step": opt_state["step"]}
-        loss = loss_of(model, batch)
-        loss.backward()
-        named = convert.ref_order(model)
-        adamw_update(named, {n: p.grad for n, p in named.items()}, opt,
-                     ocfg, decay=convert.decayed(model))
+        with _spmd():
+            model = _bind(make(), params, stacked)
+            opt = {"m": convert.flatten_params(opt_state["m"], stacked),
+                   "v": convert.flatten_params(opt_state["v"], stacked),
+                   "step": opt_state["step"]}
+            loss = loss_of(model, batch)
+            loss.backward()
+            named = convert.ref_order(model)
+            adamw_update(named, {n: _grad_like(p) for n, p in named.items()},
+                         opt, ocfg, decay=convert.decayed(model))
         return (params, {"m": opt_state["m"], "step": opt["step"],
                          "v": opt_state["v"]}, loss.detach())
     return train_step
@@ -736,6 +821,8 @@ def example_args(spec: ArchSpec, shape: ShapeCell, cell: Cell, seed: int = 0,
     range (edges within each molecule, no self-loops in a potential's
     edge list, so no pair sits at distance 0)."""
     from ..kernels.config import resolve_device
+    if spec.family == "lm":
+        return _lm_example_args(shape, cell, seed, device)
     if spec.family not in ("gnn", "equiv", "recsys"):
         raise ValueError(f"no example inputs for the {spec.family} family")
     dev = resolve_device(device)
@@ -827,6 +914,63 @@ def example_args(spec: ArchSpec, shape: ShapeCell, cell: Cell, seed: int = 0,
         args[2] = out
     else:
         args[1] = out
+    return tuple(args)
+
+
+_ONES = ("ln_attn", "ln_ffn", "ln_final", "q_norm", "k_norm", "kv_norm",
+         "ln")
+
+
+def _lm_example_args(shape: ShapeCell, cell: Cell, seed: int,
+                     device) -> tuple:
+    """Valid arguments of an LM cell drawn on ``device`` by a generator
+    seeded ``seed``, leaf by leaf as ``lm_init`` draws them (matrices
+    N(0, d_in^-1), the embedding N(0, 0.02^2), norms 1, biases 0); token
+    ids in range; a train step's moments nonzero (``v`` positive) at
+    step 5; a decode state's caches N(0, 1) with ``length`` past half the
+    cache, so the step writes into it and the mask cuts it."""
+    from ..kernels.config import resolve_device
+    from ..models.layers import normal
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cfg = cell.static["cfg"]
+
+    def param(path, t):
+        name = str(path[-1])
+        if name in _ONES:
+            return torch.ones(t.shape, dtype=t.dtype, device=dev)
+        if name in ("b", "router_bias"):
+            return torch.zeros(t.shape, dtype=t.dtype, device=dev)
+        std = 0.02 if name == "embed" else t.shape[-2] ** -0.5
+        return normal(gen, t.shape, std, t.dtype, dev)
+
+    def tokens(t):
+        return torch.randint(0, cfg.vocab, t.shape, generator=gen,
+                             device=dev, dtype=torch.int64).to(t.dtype)
+
+    args = list(cell.args)
+    args[0] = tree_map_with_path(param, args[0])
+    if shape.kind == "train":
+        opt = args[1]
+        args[1] = {"m": tree_map(lambda t: normal(gen, t.shape, 1e-3,
+                                                  t.dtype, dev), opt["m"]),
+                   "v": tree_map(lambda t: torch.rand(
+                       t.shape, generator=gen, device=dev).mul_(1e-4)
+                       .add_(1e-6).to(t.dtype), opt["v"]),
+                   "step": torch.tensor(5, dtype=torch.int32, device=dev)}
+        args[2] = tree_map(tokens, args[2])
+    elif shape.kind == "prefill":
+        args[1] = tokens(args[1])
+    else:
+        c0, c1, lens = args[1]["cache"]
+        kv = c0.shape[2]
+        args[1] = {"cache": (normal(gen, c0.shape, 1.0, c0.dtype, dev),
+                             normal(gen, c1.shape, 1.0, c1.dtype, dev),
+                             torch.zeros(lens.shape, dtype=lens.dtype,
+                                         device=dev)),
+                   "length": torch.tensor(kv // 2 + 1, dtype=torch.int32,
+                                          device=dev)}
+        args[2] = tokens(args[2])
     return tuple(args)
 
 

@@ -1,5 +1,5 @@
 """Decoder-only transformer LM: dense / GQA / qk-norm / MLA / MoE (twin
-of ``repro.models.transformer``, its local path).
+of ``repro.models.transformer``).
 
 One config covers the five LM architectures of the registry. The
 reference stacks layer parameters on a leading axis and scans; the port
@@ -15,9 +15,12 @@ Entry points:
     (latent cache when MLA is enabled). A step writes the caches in
     place; the state's ``length`` is a host int.
 
-The mesh paths (the vocab-parallel embedding lookup and loss under
-``shard_map``) are not ported: ``mesh``, ``dp_axis`` or ``tp_axis`` set
-raises ``NotImplementedError``.
+Under a mesh (``dp_axis`` / ``tp_axis`` / ``mesh`` set by
+``launch/steps.py``; the parameters and inputs ``DTensor``s) the
+activations are constrained to (dp, tp, None) between layers as the
+reference's ``with_sharding_constraint`` calls do (``_cst``, a
+``redistribute``), and the embedding lookup and the head's loss are the
+reference's vocab-parallel ``shard_map`` bodies (``models.layers``).
 """
 from __future__ import annotations
 
@@ -28,9 +31,12 @@ import torch
 from torch import nn
 
 from ..kernels.config import resolve_device
+from ..launch.sharding import P
 from .layers import (AttnConfig, Attention, Dense, GeluMLP, SwiGLU,
-                     attn_apply, dense, gelu_mlp_apply, no_mesh, normal,
-                     ones, remat, rms_norm, swiglu_apply)
+                     all_gather, attn_apply, axis_index, axis_size,
+                     constrain, dense, gelu_mlp_apply, normal, ones, pmax,
+                     psum, psum_scatter, remat, rms_norm, shard_map,
+                     swiglu_apply)
 from .mla import MLA, MLAConfig, mla_decode_apply, mla_train_apply
 from .moe import MoE, MoEConfig, moe_apply
 
@@ -57,12 +63,11 @@ class LMConfig:
     param_dtype: Any = torch.bfloat16
     compute_dtype: Any = torch.bfloat16
     remat: bool = True
-    dp_axis: Any = None                  # mesh fields: must stay None here
+    # activation-sharding axes (set by launch/steps.py under a mesh;
+    # None = no constraints, e.g. CPU smoke tests)
+    dp_axis: Any = None
     tp_axis: Any = None
-    mesh: Any = None
-
-    def __post_init__(self):
-        no_mesh(self, "dp_axis", "tp_axis", "mesh")
+    mesh: Any = None          # DeviceMesh => vocab-parallel lookup / loss
 
     @property
     def hd(self) -> int:
@@ -167,8 +172,39 @@ def lm_init(gen, cfg: LMConfig, device="cuda") -> LM:
     return LM(gen, cfg, device=device)
 
 
+def _cst(x, cfg: LMConfig, *axes):
+    """Batch-sharding constraint (ZeRO-3 style: activations stay sharded
+    over data; FSDP weights are gathered instead)."""
+    if cfg.dp_axis is None:
+        return x
+    return constrain(x, P(*axes))
+
+
 def _embed_lookup(params: LM, cfg: LMConfig, tokens) -> torch.Tensor:
-    return params.embed[tokens].to(cfg.compute_dtype)
+    """Vocab-parallel embedding lookup under a mesh: each model shard
+    resolves its own vocab range and a ``psum_scatter`` over the
+    sequence assembles the activations (the backward is a local scatter
+    per shard)."""
+    emb = params.embed
+    v = emb.shape[0]
+    mesh, tp = cfg.mesh, cfg.tp_axis
+    if (mesh is None or tp is None or v % axis_size(mesh, tp) != 0
+            or tokens.shape[1] % axis_size(mesh, tp) != 0):
+        x = emb[tokens].to(cfg.compute_dtype)
+        return _cst(x, cfg, cfg.dp_axis, cfg.tp_axis, None)
+
+    def inner(emb_l, tok_l):
+        vsh = emb_l.shape[0]
+        lo = axis_index(mesh, tp) * vsh
+        sel = tok_l.long() - lo
+        ok = (sel >= 0) & (sel < vsh)
+        out = torch.where(ok[..., None],
+                          emb_l[sel.clamp(0, vsh - 1)].to(cfg.compute_dtype),
+                          0)
+        return psum_scatter(out, mesh, tp, 1)
+
+    return shard_map(inner, mesh, (P(tp, None), P(cfg.dp_axis, None)),
+                     P(cfg.dp_axis, tp, None))(emb, tokens)
 
 
 # --------------------------------------------------------------- forward
@@ -191,21 +227,32 @@ def _block_apply(layer_p: Block, cfg: LMConfig, x: torch.Tensor,
     return x + _ffn_apply(layer_p, cfg, rms_norm(x, layer_p.ln_ffn))
 
 
+def _layer(layer_p: Block, cfg: LMConfig, x, positions) -> torch.Tensor:
+    y = _block_apply(layer_p, cfg, x, positions)
+    return _cst(y, cfg, cfg.dp_axis, cfg.tp_axis, None)
+
+
 def _backbone(params: LM, cfg: LMConfig, tokens) -> torch.Tensor:
+    # sequence-parallel activation sharding: what the backward saves per
+    # layer is sharded over both the data axis (batch) and the model
+    # axis (sequence)
     x = _embed_lookup(params, cfg, tokens)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _cst(x, cfg, cfg.dp_axis, cfg.tp_axis, None)
+    positions = torch.arange(tokens.shape[1], device=x.device)
     for layer in params.layers:
         if cfg.remat:
-            x = remat(_block_apply, layer, cfg, x, positions)
+            x = remat(_layer, layer, cfg, x, positions)
         else:
-            x = _block_apply(layer, cfg, x, positions)
+            x = _layer(layer, cfg, x, positions)
     return rms_norm(x, params.ln_final)
 
 
 def _head(params: LM, cfg: LMConfig, x) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return x @ params.embed.to(x.dtype).T
-    return dense(params.lm_head, x)
+        logits = x @ params.embed.to(x.dtype).T
+    else:
+        logits = dense(params.lm_head, x)
+    return _cst(logits, cfg, cfg.dp_axis, cfg.tp_axis, None)
 
 
 def lm_logits(params: LM, cfg: LMConfig, tokens) -> torch.Tensor:
@@ -227,9 +274,44 @@ def _xent(logits, targets, mask=None) -> torch.Tensor:
 
 def _vocab_parallel_nll(params: LM, cfg: LMConfig, h, targets
                         ) -> torch.Tensor:
-    """Per-token NLL [B, S] of the head on ``h`` (the reference's
-    no-mesh branch)."""
-    return _nll(_head(params, cfg, h), targets)
+    """Per-token NLL [B, S] of the head on ``h``. Under a mesh, the
+    Megatron-style vocab-parallel head and cross entropy of the
+    reference's ``shard_map``: each model shard holds a [d, V/tp] slice
+    of the head, gathers its sequence once, computes the logits and the
+    loss in ``n_tp`` sequence chunks (each recomputed in the backward),
+    and only per-token sums cross shards."""
+    mesh, tp = cfg.mesh, cfg.tp_axis
+    w = params.lm_head.w if not cfg.tie_embeddings else None
+    if (w is None or mesh is None or tp is None
+            or cfg.vocab % axis_size(mesh, tp) != 0
+            or h.shape[1] % (axis_size(mesh, tp) ** 2) != 0):
+        return _nll(_head(params, cfg, h), targets)
+    n_chunks = axis_size(mesh, tp)
+
+    def chunk_nll(hx, tx, wl, lo):
+        logits = (hx @ wl.to(hx.dtype)).float()
+        # the running max is a numerical-stability shift only
+        m = pmax(logits.amax(-1), mesh, tp)
+        se = psum(torch.exp(logits - m[..., None]).sum(-1), mesh, tp)
+        viota = torch.arange(logits.shape[-1], device=logits.device) + lo
+        gold = torch.where(viota == tx[..., None].long(), logits,
+                           0.0).sum(-1)
+        gold = psum(gold, mesh, tp)
+        return torch.log(se) + m - gold
+
+    def inner(hl, wl, tl):
+        hfull = all_gather(hl, mesh, tp, 1)                  # [B_l, S, d]
+        lo = axis_index(mesh, tp) * wl.shape[1]
+        c = hfull.shape[1] // n_chunks
+        return torch.cat([
+            remat(chunk_nll, hfull[:, i * c:(i + 1) * c],
+                  tl[:, i * c:(i + 1) * c], wl, lo)
+            for i in range(n_chunks)], dim=1)
+
+    return shard_map(inner, mesh,
+                     (P(cfg.dp_axis, tp, None), P(None, tp),
+                      P(cfg.dp_axis, None)),
+                     P(cfg.dp_axis, None))(h, w, targets)
 
 
 def lm_loss(params: LM, cfg: LMConfig, batch: dict) -> torch.Tensor:
@@ -246,6 +328,7 @@ def lm_loss(params: LM, cfg: LMConfig, batch: dict) -> torch.Tensor:
             emb_next = _embed_lookup(params, cfg, targets)
             z = torch.cat([rms_norm(h, params.mtp.ln), emb_next], dim=-1)
             z = dense(params.mtp.proj, z)
+            z = _cst(z, cfg, cfg.dp_axis, cfg.tp_axis, None)
             z = _block_apply(params.mtp.block, cfg, z,
                              torch.arange(z.shape[1], device=z.device))
             t2 = torch.cat([targets[:, 1:], targets[:, -1:]], dim=1)

@@ -28,8 +28,6 @@ from repro_torch import convert
 from repro_torch.configs import registry as T_REG
 from repro_torch.models import equivariant as TE
 from repro_torch.models import gnn as TG
-from repro_torch.models import mla as TA
-from repro_torch.models import moe as TM
 from repro_torch.models import recsys as TR
 from repro_torch.models import transformer as TT
 
@@ -124,23 +122,6 @@ def test_full_config_on_meta_counts_the_reference_parameters(arch):
         matrices = sum(p.numel() for n, p in port.named_parameters()
                        if p.dim() >= 2 and not n.startswith("mtp."))
         assert matrices == spec.config.n_params()
-
-
-@pytest.mark.parametrize("cls,kw,field", [
-    (TT.LMConfig, dict(name="x", n_layers=1, d_model=8, n_heads=2,
-                       n_kv_heads=1, d_ff=16, vocab=32), f)
-    for f in ("mesh", "dp_axis", "tp_axis")] + [
-    (TM.MoEConfig, dict(n_experts=4, top_k=2, d_ff_expert=8), f)
-    for f in ("mesh", "ep_axis", "token_axes", "cap_axes", "dp_axes",
-              "seq_axis")] + [
-    (TA.MLAConfig, dict(d_model=8, n_heads=2), f)
-    for f in ("mesh", "dp_axis", "tp_axis", "decode_flash")])
-def test_a_mesh_field_raises(cls, kw, field):
-    cfg = cls(**kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        cls(**kw, **{field: "model" if field != "decode_flash" else True})
-    with pytest.raises(NotImplementedError, match=field):
-        dataclasses.replace(cfg, **{field: ("data",)})
 
 
 def test_the_default_device_needs_a_card():

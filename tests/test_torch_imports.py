@@ -18,6 +18,9 @@ EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
 # the training slice's modules, which the walk below must reach
 TRAINING = ("repro_torch.data.lm_data", "repro_torch.training.optimizer",
             "repro_torch.training.checkpoint", "repro_torch.launch.train")
+# the dry-run slice's modules, likewise
+DRYRUN = ("repro_torch.launch.dryrun", "repro_torch.roofline.analysis",
+          "repro_torch.roofline.hlo_cost")
 
 _BLOCKED_IMPORT = f"""
 import importlib, pkgutil, sys
@@ -37,6 +40,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert set({TRAINING!r}) <= set(names), sorted(names)
+assert set({DRYRUN!r}) <= set(names), sorted(names)
 import repro_torch.api as api
 api.MatchSession, api.MatchOptions, api.QueueFull
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
@@ -52,6 +56,38 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 70
+
+
+_BLOCKED_DRYRUN = f"""
+import runpy, sys
+
+BANNED = {BANNED!r}
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError("blocked import of " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+sys.argv = ["dryrun", "--arch", "qwen3-0.6b", "--shape", "decode_32k",
+            "--mesh", "single", "--out", sys.argv[1]]
+try:
+    runpy.run_module("repro_torch.launch.dryrun", run_name="__main__")
+except SystemExit as exc:
+    assert exc.code == 0, exc.code
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+assert not leaked, leaked
+"""
+
+
+def test_the_dryrun_counts_a_cell_with_jax_and_repro_blocked(tmp_path):
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_DRYRUN, str(tmp_path)],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert (tmp_path / "qwen3-0.6b__decode_32k__pod16x16.json").exists()
 
 
 _BLOCKED_EXAMPLES = f"""

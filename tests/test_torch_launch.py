@@ -22,8 +22,8 @@ Integer, boolean and bitmap lanes must be equal bit for bit; float
 lanes within rtol 1e-4, atol 1e-5 (the reference's own model tests'
 rule, ``tests/test_archs.py``), forces-free losses included.
 
-The LM cells' ``fn`` raises ``NotImplementedError`` naming ROADMAP
-queue 1 item 9b, and ``Cell.lower`` names item 9c.
+The LM cells' values are held in ``tests/test_torch_lm_cells.py`` (mesh
+(1, 1)) and ``tests/test_torch_mesh_paths.py`` (four ranks).
 """
 import dataclasses
 import json
@@ -388,19 +388,6 @@ def test_a_train_step_updates_its_donated_trees_in_place(
 
 # ---------------------------------------------------------------- LM
 LM_CELLS = [(a, s) for a, s in CELLS if T_REG.ARCHS[a].family == "lm"]
-
-
-def test_lm_cells_raise_naming_the_mesh_paths(one_device_meshes):
-    t_mesh, _ = one_device_meshes
-    assert len(LM_CELLS) == 20
-    for arch, shape in LM_CELLS:
-        cell = T_STEPS.build_cell(arch, shape, t_mesh)
-        with pytest.raises(NotImplementedError, match="queue 1 item 9b"):
-            cell.fn(*cell.args)
-        fields = cell.static["mesh_fields"]
-        assert fields["mesh"] is t_mesh and fields["dp_axis"] == "data"
-    with pytest.raises(NotImplementedError, match="queue 1 item 9c"):
-        cell.lower(t_mesh)
 
 
 def test_lm_mesh_fields_follow_the_reference(one_device_meshes):
