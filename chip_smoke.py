@@ -243,7 +243,25 @@ Drives the port (``src/repro_torch``), never the JAX package:
     ``--mesh-cpu-run``) by the f32 rule. Each cell's bytes are reckoned
     before it runs; ms of a second call, peak bytes and, for deepseek,
     the share of (token, expert) pairs dropped at capacity are printed.
-    ``[mesh-*]`` lines.
+    ``[mesh-*]`` lines;
+19. runs the non-LM step cells on ``DTensor``s at mesh (1, 1) over a
+    one-rank NCCL group, the arguments placed by the cells' specs
+    (``sharding.distribute``: the matcher's adjacency split over
+    ``model``, its lanes over ``data``), within 60 s, every kernel's
+    count set to 0 before and read after (``slice10_path_launches``):
+    (a) the matcher's ``yeast_scale_stacks`` and ``yeast_scale`` on step
+    17 (b)'s arguments, every lane bit for bit against its plain-tensor
+    result (itself equal to the CPU's), dense refine launches positive;
+    (b) ``web_scale`` at its published wave (8192), kpr 16, 16 slots
+    and pattern capacity 65536, on the scale graph
+    (``powerlaw_graph(65536, 3, 16, seed=0)``; 1,048,576 vertices make a
+    137 GB dense block) with 16 five-vertex queries, once on the dense
+    block (537 MB) and once on the two-level layout (15.75 MB), each bit
+    for bit against the same cell on plain tensors on the card, dense
+    and hier launches positive; (c) the GNN, equivariant and DIN cells
+    step 17 (b) ran, on the same draws, against its plain-tensor
+    outputs by the f32 rule. ms a call beside the plain-tensor ones.
+    ``[dmesh-*]`` lines.
 
 Steps 11-12 print their seconds (together, ``faults-distributed``),
 refine launches (each part's count set to 0 just before it), fault
@@ -251,12 +269,14 @@ counters and fired faults; steps 13-14 theirs (``tuner-server``); step
 15 one ``[models-*]`` line a part and its seconds (``models``), step 16
 its ``[train-*]`` lines and its seconds (``train``), step 17 its
 ``[examples-*]`` / ``[cells-*]`` lines and its seconds (``slice8``),
-step 18 its ``[mesh-*]`` lines and its seconds (``slice9``).
+step 18 its ``[mesh-*]`` lines and its seconds (``slice9``), step 19
+its ``[dmesh-*]`` lines and its seconds (``slice10``).
 The kernel table's rows carry step 15's launches: (a)-(d)'s
 (``slice6_path_launches``, each 0) and (e)'s
 (``slice6_check_launches``); step 16's (``slice7_path_launches``, each
-0); step 17's (``slice8_path_launches``); and step 18's
-(``slice9_path_launches``, each 0).
+0); step 17's (``slice8_path_launches``); step 18's
+(``slice9_path_launches``, each 0); and step 19's
+(``slice10_path_launches``).
 
 Prints one ``[phase]`` info line per step (the ``done`` line gives the
 script's own seconds), then the kernel table as one JSON line, the
@@ -3035,14 +3055,15 @@ def compare_trees(tag: str, got, want, rule=F32_RULE) -> dict:
     return {"lanes": len(w_leaves), "max_abs_err": worst}
 
 
-def matcher_cells(dev, mesh) -> dict:
+def matcher_cells(dev, mesh, plain: dict | None = None) -> dict:
     """Phase 17 (b), the matcher cells at their published shapes, on real
     banks: a 4096-vertex power-law graph and 16 five-vertex queries
     through ``steps.matcher_args``. The stack cell runs first; its Δ
     store after the run is the wave cell's input store. Each runs on
     ``dev`` and on the CPU (plain refine), every lane bit for bit; the
     card run's dense refine launches must be positive. Step times: the
-    median of 3 calls on fresh copies of the inputs."""
+    median of 3 calls on fresh copies of the inputs. ``plain`` (if
+    given) keeps each cell's arguments and CPU result for phase 19."""
     import torch
     from repro_torch.configs.registry import get_arch
     from repro_torch.data.graph_gen import powerlaw_graph, query_set
@@ -3069,6 +3090,8 @@ def matcher_cells(dev, mesh) -> dict:
         require(launches["dense"] > 0 and launches["hier"] == 0,
                 f"{shape}: refine launches {launches}")
         res = compare_trees(shape, got, want)
+        if plain is not None:
+            plain[shape] = (args, want)
         times = []
         for _ in range(3):
             fresh = to_device(args, dev)
@@ -3127,7 +3150,8 @@ def probe_excess(spec, shape, mesh, dev) -> float:
 
 
 def model_cells(dev, mesh, peak_limit=CELL_PEAK_LIMIT,
-                cpu_limit=CELL_CPU_LIMIT) -> dict:
+                cpu_limit=CELL_CPU_LIMIT, plain: dict | None = None
+                ) -> dict:
     """Phase 17 (b), the GNN, equivariant and DIN cells. Each cell's
     estimated peak: its argument bytes plus, for a train step, its
     gradients and six f32 copies of its largest leaf (AdamW's per-leaf
@@ -3138,7 +3162,8 @@ def model_cells(dev, mesh, peak_limit=CELL_PEAK_LIMIT,
     inputs (``steps.example_args``): finite outputs, and, if the card's
     measured peak is at most ``cpu_limit``, every output lane against
     the CPU's run of the same inputs (copied before the card's run, which
-    updates donated arguments in place) by the f32 rule."""
+    updates donated arguments in place) by the f32 rule. ``plain`` (if
+    given) keeps each run's outputs, on the CPU, for phase 19."""
     import torch
     from repro_torch.configs.registry import all_cells, get_arch
     from repro_torch.launch import steps
@@ -3172,6 +3197,8 @@ def model_cells(dev, mesh, peak_limit=CELL_PEAK_LIMIT,
         peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
                 else est)
         on_cpu = peak <= cpu_limit
+        if plain is not None:
+            plain[name] = to_device(got, torch.device("cpu"))
         row = {"arg_bytes": nbytes, "est_peak_bytes": est,
                "peak_bytes": peak, "ms": ms, "cpu_checked": on_cpu}
         if on_cpu:
@@ -3195,7 +3222,8 @@ def cells_phase(dev, peak_limit=CELL_PEAK_LIMIT,
                 cpu_limit=CELL_CPU_LIMIT) -> dict:
     """Phase 17 (b): every cell built at mesh (1, 1) over a one-rank
     process group on ``dev``, its argument bytes printed; the matcher
-    cells and the model cells that fit (the LM cells run in phase 18)."""
+    cells and the model cells that fit (the LM cells run in phase 18).
+    ``parts["plain"]`` keeps their plain-tensor results for phase 19."""
     import torch.distributed as dist
     from repro_torch.configs.registry import all_cells
     from repro_torch.launch import mesh as meshes, steps
@@ -3205,8 +3233,11 @@ def cells_phase(dev, peak_limit=CELL_PEAK_LIMIT,
         info("cells-bytes", **{f"{a}/{s}": steps.build_cell(a, s, mesh)
                                .arg_bytes()
                                for a, s in all_cells(include_matcher=True)})
-        parts = {"matcher": matcher_cells(dev, mesh)}
-        parts["models"] = model_cells(dev, mesh, peak_limit, cpu_limit)
+        plain: dict = {"matcher": {}, "models": {}}
+        parts = {"matcher": matcher_cells(dev, mesh, plain["matcher"])}
+        parts["models"] = model_cells(dev, mesh, peak_limit, cpu_limit,
+                                      plain["models"])
+        parts["plain"] = plain
         info("cells-models", **parts["models"])
     finally:
         dist.destroy_process_group()
@@ -3549,6 +3580,154 @@ def mesh_paths_phase(dev) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase 19: the non-LM step cells on DTensors (mesh (1, 1))
+# ----------------------------------------------------------------------
+PHASE19_BUDGET_S = 60            # phase 19's own limit
+WEB_DIMS = {"n_vertices": 65536}  # web_scale's cut: the scale graph
+MATCHER_REPS = 3                 # timed calls of each matcher cell
+
+
+def dmesh_call(cell, args, mesh):
+    """``cell.fn`` on ``args`` placed as ``DTensor``s by the cell's specs,
+    the outputs read back whole."""
+    from repro_torch.launch.sharding import distribute, full
+    return full(cell.fn(*distribute(args, cell.in_specs, mesh)))
+
+
+def timed_ms(dev, fn, make_args, reps: int) -> float:
+    """Median ms of ``reps`` calls of ``fn`` on fresh arguments."""
+    times = []
+    for _ in range(reps):
+        args = make_args()
+        sync(dev)
+        t0 = time.perf_counter()
+        fn(args)
+        sync(dev)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def web_scale_cells(dev, mesh, data) -> dict:
+    """Phase 19 (b)'s cells and their plain-tensor results: ``web_scale``
+    at its published dims on ``data`` (the scale graph), dense and
+    hier, arguments on ``dev`` (cloned for each call)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.configs.common import ShapeCell
+    from repro_torch.data.graph_gen import query_set
+    from repro_torch.launch import steps
+    spec = get_arch("paper-matcher")
+    base = dict(spec.shape("web_scale").dims, **WEB_DIMS)
+    queries = query_set(data, MATCHER_QUERIES["size"], base["n_slots"],
+                        seed=MATCHER_QUERIES["seed"])
+    out = {}
+    for layout, extra in (("dense", {}), ("hier", {"hier_adjacency": True})):
+        dims = dict(base, **extra)
+        cell = steps.build_cell_of(spec, ShapeCell("web_scale", "matcher",
+                                                   dims), mesh)
+        args = steps.matcher_args(dims, data, queries, device=dev)
+        want = cell.fn(*to_device(args, dev))
+        sync(dev)
+        out[layout] = (cell, args, want)
+    return out
+
+
+def cell_meshes_phase(dev, phase17: dict, scale) -> dict:
+    """Phase 19: the matcher, GNN, equivariant and DIN cells at mesh
+    (1, 1) over a one-rank NCCL group, every argument a ``DTensor``
+    placed by its cell's spec, within ``PHASE19_BUDGET_S``: (a) the
+    yeast cells on phase 17 (b)'s arguments against its results, bit
+    for bit; (b) ``web_scale`` cut to ``scale``'s 65536 vertices, dense
+    and hier, against the same cells on plain tensors here, bit for bit;
+    (c) every model cell phase 17 (b) ran, on its draws (seed 17),
+    against its outputs by the f32 rule. Every kernel's count is set to
+    0 before the ``DTensor`` calls and read after (the plain-tensor
+    references of (b) run before); then each matcher cell's ms a call on
+    ``DTensor``s (and (b)'s on plain tensors), median of 3."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import mesh as meshes, steps
+    t0 = time.perf_counter()
+    plain = phase17["plain"]
+    parts: dict = {"a": {}, "b": {}, "c": {}}
+    single_rank_group(dev)
+    try:
+        mesh = meshes.make_host_test_mesh((1, 1))
+        web = web_scale_cells(dev, mesh, scale)
+        reset_kernel_launches()
+        counts = [kernel_launches()]
+        yeast = {}
+        for shape, (args, want) in plain["matcher"].items():
+            cell = steps.build_cell("paper-matcher", shape, mesh)
+            got = dmesh_call(cell, to_device(args, dev), mesh)
+            sync(dev)
+            parts["a"][shape] = compare_trees(f"dmesh {shape}", got, want)
+            yeast[shape] = (cell, args)
+        counts.append(kernel_launches())
+        for layout, (cell, args, want) in web.items():
+            got = dmesh_call(cell, to_device(args, dev), mesh)
+            sync(dev)
+            parts["b"][layout] = compare_trees(f"dmesh web_scale {layout}",
+                                               got, want)
+        counts.append(kernel_launches())
+        for name, want in plain["models"].items():
+            arch, shape_name = name.split("/")
+            spec = get_arch(arch)
+            shape = spec.shape(shape_name)
+            cell = steps.build_cell(arch, shape_name, mesh)
+            args = steps.example_args(spec, shape, cell, seed=17, device=dev)
+            sync(dev)
+            t1 = time.perf_counter()
+            got = dmesh_call(cell, args, mesh)
+            sync(dev)
+            ms = 1e3 * (time.perf_counter() - t1)
+            parts["c"][name] = {"ms": ms, "plain_ms":
+                                phase17["models"]["ran"][name]["ms"],
+                                **compare_trees(f"dmesh {name}", got, want)}
+            del got, args
+        sync(dev)
+        counts.append(kernel_launches())
+        parts["path_launches"] = counts[-1]
+        for i, part in enumerate("abc"):
+            parts[f"launches_{part}"] = {k: counts[i + 1][k] - counts[i][k]
+                                         for k in counts[0]}
+        for shape, (cell, args) in yeast.items():
+            parts["a"][shape].update(
+                ms=timed_ms(dev, lambda a: dmesh_call(cell, a, mesh),
+                            lambda: to_device(args, dev), MATCHER_REPS),
+                plain_ms=phase17["matcher"][shape]["step_ms"])
+        for layout, (cell, args, _) in web.items():
+            parts["b"][layout].update(
+                ms=timed_ms(dev, lambda a: dmesh_call(cell, a, mesh),
+                            lambda: to_device(args, dev), MATCHER_REPS),
+                plain_ms=timed_ms(dev, lambda a: cell.fn(*a),
+                                  lambda: to_device(args, dev),
+                                  MATCHER_REPS),
+                arg_bytes=steps.tree_bytes(args))
+        del web, yeast
+    finally:
+        dist.destroy_process_group()
+    for part in "abc":
+        for name, row in parts[part].items():
+            info(f"dmesh-{part}-{name}", **row)
+    info("slice10-path", launches=parts["path_launches"],
+         **{f"launches_{p}": parts[f"launches_{p}"] for p in "abc"})
+    la, lb = parts["launches_a"], parts["launches_b"]
+    require(la["refine_bitmap_rows"] > 0,
+            f"phase 19 (a): no dense refine launch: {la}")
+    require(lb["refine_bitmap_rows"] > 0
+            and lb["refine_bitmap_rows_hier"] > 0,
+            f"phase 19 (b): a refine kernel did not launch: {lb}")
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    info("slice10", seconds=seconds,
+         within_60_s=seconds <= PHASE19_BUDGET_S)
+    require(seconds <= PHASE19_BUDGET_S,
+            f"phase 19 took {seconds:.1f} s (limit {PHASE19_BUDGET_S})")
+    return parts
+
+
+# ----------------------------------------------------------------------
 def warm_up(dev, wl) -> None:
     """CUDA context and first launches of both kernels' paths, outside
     every counted run."""
@@ -3598,13 +3777,14 @@ TIMING_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def kernel_row(name, source, replaces, launches, worst, timing,
-               slice6, slice7, slice8, slice9, cases=None) -> dict:
+               slice6, slice7, slice8, slice9, slice10, cases=None) -> dict:
     """One row of the kernel table: ``launches`` from the main path's
     run, the times and bound from ``timing`` (one case's), the error the
     worst of the checks; ``slice6`` the kernel's launches in phase 15,
     ``path`` in the models' run (a)-(d) and ``check`` in (e); ``slice7``
     its launches in phase 16, ``slice8`` in phase 17, ``slice9`` in
-    phase 18; ``cases`` adds every timed case's numbers."""
+    phase 18, ``slice10`` in phase 19; ``cases`` adds every timed case's
+    numbers."""
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches,
            "max_abs_err": max(worst, timing.get("max_abs_err", 0)),
@@ -3613,7 +3793,8 @@ def kernel_row(name, source, replaces, launches, worst, timing,
            "slice6_check_launches": slice6["check"],
            "slice7_path_launches": slice7,
            "slice8_path_launches": slice8,
-           "slice9_path_launches": slice9}
+           "slice9_path_launches": slice9,
+           "slice10_path_launches": slice10}
     if "launch_floor_ms" in timing:
         row["launch_floor_ms"] = timing["launch_floor_ms"]
     if cases:
@@ -3737,13 +3918,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t_slice8 = time.perf_counter()
-    slice8 = examples_cells_phase(dev)["path_launches"]
+    phase17 = examples_cells_phase(dev)
+    slice8 = phase17["path_launches"]
     slice8_seconds = time.perf_counter() - t_slice8
     gc.collect()
     torch.cuda.empty_cache()
     t_slice9 = time.perf_counter()
     slice9 = mesh_paths_phase(dev)["path_launches"]
     slice9_seconds = time.perf_counter() - t_slice9
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_slice10 = time.perf_counter()
+    slice10 = cell_meshes_phase(dev, phase17["b"], scale)["path_launches"]
+    del phase17
+    slice10_seconds = time.perf_counter() - t_slice10
     rows = [kernel_row("refine_bitmap_rows",
                        "src/repro_torch/kernels/csrc/bitmap_refine.cu",
                        "src/repro/kernels/bitmap_refine.py:100",
@@ -3751,7 +3939,8 @@ def main() -> int:
                        slice6["refine_bitmap_rows"],
                        slice7["refine_bitmap_rows"],
                        slice8["refine_bitmap_rows"],
-                       slice9["refine_bitmap_rows"]),
+                       slice9["refine_bitmap_rows"],
+                       slice10["refine_bitmap_rows"]),
             kernel_row("refine_bitmap_rows_hier",
                        "src/repro_torch/kernels/csrc/bitmap_refine_hier.cu",
                        "src/repro/kernels/bitmap_refine.py:323",
@@ -3759,14 +3948,15 @@ def main() -> int:
                        slice6["refine_bitmap_rows_hier"],
                        slice7["refine_bitmap_rows_hier"],
                        slice8["refine_bitmap_rows_hier"],
-                       slice9["refine_bitmap_rows_hier"]),
+                       slice9["refine_bitmap_rows_hier"],
+                       slice10["refine_bitmap_rows_hier"]),
             kernel_row("bitmap_spmm",
                        "src/repro_torch/kernels/csrc/bitmap_spmm.cu",
                        "src/repro/kernels/bitmap_spmm.py:68",
                        op_launches["bitmap_spmm"], worst_ops["bitmap_spmm"],
                        op_timing["a human f32"], slice6["bitmap_spmm"],
                        slice7["bitmap_spmm"], slice8["bitmap_spmm"],
-                       slice9["bitmap_spmm"],
+                       slice9["bitmap_spmm"], slice10["bitmap_spmm"],
                        {c: op_timing[c] for c in SPMM_TIMED}),
             kernel_row("flash_attention",
                        "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3777,13 +3967,15 @@ def main() -> int:
                        slice6["flash_attention"],
                        slice7["flash_attention"],
                        slice8["flash_attention"],
-                       slice9["flash_attention"])]
+                       slice9["flash_attention"],
+                       slice10["flash_attention"])]
     seconds = time.perf_counter() - t_start
     info("done", seconds=seconds, ops_seconds=ops_seconds,
          faults_distributed_seconds=ft_seconds,
          tuner_server_seconds=ts_seconds, models_seconds=models_seconds,
          train_seconds=train_seconds, slice8_seconds=slice8_seconds,
-         slice9_seconds=slice9_seconds, within_600_s=seconds <= 600)
+         slice9_seconds=slice9_seconds, slice10_seconds=slice10_seconds,
+         within_600_s=seconds <= 600)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -44,9 +44,11 @@ from ..kernels.bitmap_refine import (refine_bitmap_rows,
                                      refine_bitmap_rows_hier)
 from ..kernels.bitops import (bit_table, bitlen32, popcount,
                               popcount_rows, to_i32, u32)
+from ..kernels.ref import _and_fold
 from ..patterns.store import (MASK_WORDS, PatternStore, PatternStoreBank,
                               StoreCounters, hash_insert, hash_probe,
                               masked_put_)
+from ..roofline.hlo_cost import loop_condition
 
 N_PAD = 64              # padded query size
 I32 = torch.int32
@@ -60,6 +62,19 @@ STK_FRESH = 1
 STK_LEFT = 2
 STK_WAIT = 3
 STK_RES = 4
+
+
+class RowSplit(NamedTuple):
+    """Where a mesh step's adjacency rows lie (:func:`refine_eq2_mq` on
+    a mesh): this rank holds rows ``[offset, offset + n)`` of the
+    ``n_vertices``-row dense block or summary, split over mesh axis
+    ``axis``; the wave's rows are divided over ``dp_axes`` (major to
+    minor) for the refine."""
+    mesh: object                 # torch DeviceMesh
+    axis: str                    # the axis splitting the adjacency rows
+    offset: int                  # this rank's first global row
+    n_vertices: int              # V, the rows of the whole block
+    dp_axes: tuple = ()          # axes dividing the wave's rows
 
 
 class GraphArrays(NamedTuple):
@@ -78,6 +93,10 @@ class GraphArrays(NamedTuple):
     The scheduler picks the layout once, at construction
     (kernels.config.use_hbm_adjacency); :func:`refine_eq2_mq` branches
     on ``chunk_data is not None``.
+
+    On a mesh (a step cell's ``fn`` on ``DTensor``s) ``split`` is set:
+    ``adj_bitmap`` / ``adj_summary`` are this rank's rows of the block
+    (:class:`RowSplit`), every other field whole.
     """
     adj_bitmap: torch.Tensor | None   # int32 [V, W] packed adjacency
     n_vertices: int
@@ -86,6 +105,7 @@ class GraphArrays(NamedTuple):
     chunk_id: torch.Tensor | None = None     # int32 [n_stored + kmax]
     chunk_data: torch.Tensor | None = None   # int32 [n_stored + kmax, C]
     kmax: int = 0                            # most stored chunks on a row
+    split: RowSplit | None = None            # the rows' mesh split
 
 
 class QueryBank(NamedTuple):
@@ -323,11 +343,69 @@ def refine_eq2_mq(g: GraphArrays, qb: QueryBank, query_slot: torch.Tensor,
     pos = torch.arange(N_PAD, device=depth.device)
     active = qb.nbr_mask[query_slot, d] & (pos[None, :] < depth[:, None])
     frontier = frontier.to(I32).contiguous()
+    if g.split is not None:
+        return _refine_split_rows(g, acc0, frontier, active.to(I32))
     if g.chunk_data is not None:
         return refine_bitmap_rows_hier(g.adj_summary, g.chunk_ptr,
                                        g.chunk_id, g.chunk_data, g.kmax,
                                        acc0, frontier, active.to(I32))
     return refine_bitmap_rows(g.adj_bitmap, acc0, frontier, active.to(I32))
+
+
+def _axis_len(mesh, axis: str) -> int:
+    return mesh.size(list(mesh.mesh_dim_names).index(axis))
+
+
+def _refine_split_rows(g: GraphArrays, acc0: torch.Tensor,
+                       frontier: torch.Tensor, active: torch.Tensor
+                       ) -> torch.Tensor:
+    """Eq. 2 on a mesh whose adjacency rows are split over
+    ``g.split.axis`` (the dense block, or the hier summary with the
+    chunk store whole on every rank).
+
+    The wave's rows are divided over the data axes (when they divide
+    ``F``): each rank refines its own rows, with the local kernel on its
+    own adjacency rows. A position whose frontier vertex this rank holds
+    contributes its row; any other position contributes all ones (its
+    frontier lane becomes -1). A vertex past V - 1 counts as V - 1's, so
+    its holder passes it on past its last local row and the kernels'
+    own rule applies (the dense kernel reads that row; the hier kernel
+    ANDs its summary and no chunk). The partial words are gathered over
+    the split axis and ANDed, then the rows gathered over the data axes
+    in row order: every rank returns the whole [F, W] result."""
+    from ..models.layers import all_gather
+    sp = g.split
+    mesh = sp.mesh
+    f = acc0.shape[0]
+    n_dp = 1
+    for a in sp.dp_axes:
+        n_dp *= _axis_len(mesh, a)
+    dp_axes = sp.dp_axes if f % n_dp == 0 else ()
+    if dp_axes:
+        k = 0
+        for a in dp_axes:
+            k = k * _axis_len(mesh, a) + mesh.get_local_rank(a)
+        rows = slice(k * (f // n_dp), (k + 1) * (f // n_dp))
+        acc0, frontier, active = acc0[rows], frontier[rows], active[rows]
+    hier = g.chunk_data is not None
+    table = g.adj_summary if hier else g.adj_bitmap
+    lo, n_local = sp.offset, table.shape[0]
+    vert = frontier.clamp(max=sp.n_vertices - 1)
+    mine = (frontier >= 0) & (vert >= lo) & (vert < lo + n_local)
+    local_f = torch.where(mine, frontier - lo, -1).contiguous()
+    local_a = torch.where(mine, active, 0).contiguous()
+    if hier:
+        part = refine_bitmap_rows_hier(
+            table, g.chunk_ptr[lo:lo + n_local + 1], g.chunk_id,
+            g.chunk_data, g.kmax, acc0, local_f, local_a)
+    else:
+        part = refine_bitmap_rows(table, acc0, local_f, local_a)
+    m = _axis_len(mesh, sp.axis)
+    out = _and_fold(all_gather(part, mesh, sp.axis, 0).reshape(
+        (m,) + tuple(part.shape)).transpose(0, 1))
+    for a in reversed(dp_axes):
+        out = all_gather(out, mesh, a, 0)
+    return out
 
 
 def deadend_lookup_children_mq(tb: PatternStoreBank, phi: torch.Tensor,
@@ -854,9 +932,9 @@ def run_device_megastep(g: GraphArrays, qb: QueryBank,
     pos_phi = torch.arange(N_PAD + 1, device=dev)
     active = active.to(dev)
 
-    def readback(cond: torch.Tensor) -> bool:
+    def readback(cond: torch.Tensor, first: bool) -> bool:
         t0 = time.perf_counter()
-        out = bool(cond)
+        out = loop_condition(cond, first)
         if timing is not None:
             timing["readbacks"] = timing.get("readbacks", 0) + 1
             timing["readback_s"] = (timing.get("readback_s", 0.0)
@@ -911,7 +989,7 @@ def run_device_megastep(g: GraphArrays, qb: QueryBank,
     it = 0
     while it < t_max and readback(
             (torch.where(active, sb.ptop, 0) > 0).any()
-            & (n_emb + f * kpr <= emb_cap)):
+            & (n_emb + f * kpr <= emb_cap), it == 0):
         st, ptop = sb.state, sb.ptop.to(I64)
 
         # ---- wave selection: waterfill quota over pending slots --------
@@ -1094,10 +1172,10 @@ def run_device_megastep(g: GraphArrays, qb: QueryBank,
                     + _slot_counts(s_of_c, do_store, n_slots))
 
     # ---- final drain: at most 12 more resolution sweeps ----------------
-    for _ in range(12):
+    for i in range(12):
         if not readback(((sb.state == STK_RES).any()
                          | ((sb.state == STK_WAIT)
-                            & (sb.outstanding == 0)).any())):
+                            & (sb.outstanding == 0)).any()), i == 0):
             break
         n_st, pat_d = _resolution_sweep(qb, tb, sb, learn_enabled, f)
         d_stored = d_stored + n_st

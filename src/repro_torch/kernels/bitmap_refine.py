@@ -8,13 +8,16 @@ packed adjacency; :func:`refine_bitmap_rows_hier` ports
 For a CUDA tensor each launches its hand-written kernel in ``csrc/``
 (built and loaded by ``build.py``); for a CPU tensor it runs its plain
 version in ``ref.py``. There is no fallback from one to the other: a
-CUDA call either launches or raises.
+CUDA call either launches or raises. Neither takes a ``DTensor``: a
+kernel reads its inputs by address, and a mesh step launches it on each
+rank's local tensors (``core.engine_step``'s split refine).
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from . import build
 from .config import backend_for
@@ -36,6 +39,14 @@ SIGNATURES = {
 
 def _library(name: str = "refine_bitmap_rows") -> ctypes.CDLL:
     return build.load(name, SIGNATURES[name])
+
+
+def _no_dtensor(**args) -> None:
+    """Raise ``TypeError`` naming the first ``DTensor`` argument."""
+    for name, t in args.items():
+        if isinstance(t, DTensor):
+            raise TypeError(f"{name} is a DTensor: the refine kernels take "
+                            "each rank's local tensors (to_local())")
 
 
 def _checked(name: str, t: torch.Tensor, device: torch.device,
@@ -79,8 +90,11 @@ def refine_bitmap_rows(adj_bitmap: torch.Tensor, cand_rows: torch.Tensor,
     int32 [F, NP] (-1 unmapped), ``active`` int32 [F, NP]; returns int32
     [F, W]. Same semantics as ``ref.refine_bitmap_rows_ref``.
     ``backend`` names this call's backend (``config.backend_for``). The
-    CUDA kernel reads a strided input from a contiguous copy.
+    CUDA kernel reads a strided input from a contiguous copy. A
+    ``DTensor`` argument raises ``TypeError``.
     """
+    _no_dtensor(adj_bitmap=adj_bitmap, cand_rows=cand_rows,
+                frontier=frontier, active=active)
     if backend_for(cand_rows, backend) == "torch":
         return refine_bitmap_rows_ref(adj_bitmap, cand_rows, frontier,
                                       active)
@@ -128,8 +142,12 @@ def refine_bitmap_rows_hier(summary: torch.Tensor, chunk_ptr: torch.Tensor,
     parity with the reference (its chunk-copy pipeline depth); the CUDA
     kernel does not read it and it changes no bit. ``backend`` names
     this call's backend (``config.backend_for``). The CUDA kernel reads a
-    strided input from a contiguous copy.
+    strided input from a contiguous copy. A ``DTensor`` argument raises
+    ``TypeError``.
     """
+    _no_dtensor(summary=summary, chunk_ptr=chunk_ptr, chunk_id=chunk_id,
+                chunk_data=chunk_data, cand_rows=cand_rows,
+                frontier=frontier, active=active)
     if dma_depth is not None and int(dma_depth) < 1:
         raise ValueError(f"dma_depth must be >= 1, got {dma_depth!r}")
     if backend_for(cand_rows, backend) == "torch":

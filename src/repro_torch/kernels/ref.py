@@ -131,8 +131,10 @@ def refine_bitmap_rows_hier_ref(summary: torch.Tensor,
     out = cand_rows & -mask.to(torch.int32)
     act = (active != 0) & (frontier >= 0) & (frontier < v)
     if positions is None:
-        cols = act.any(dim=0).nonzero()
-        positions = int(cols.max()) + 1 if cols.numel() else 0
+        from ..roofline.hlo_cost import loop_bound
+        deepest = torch.where(act.any(dim=0),
+                              torch.arange(1, np_ + 1, device=dev), 0)
+        positions = loop_bound(deepest.max()) if np_ else 0
     win = torch.arange(kmax, device=dev)
     for p in range(positions):
         vtx = frontier[:, p].clamp(0, v - 1).long()

@@ -19,7 +19,13 @@ What the steps do on real tensors, family by family:
 * the matcher cells run ``expand_wave_mq`` and ``run_device_megastep``
   (the Δ store and stack banks are updated in place and returned in the
   reference's output positions); :func:`matcher_args` builds real inputs
-  for them;
+  for them, on either adjacency layout. On ``DTensor``s a matcher step
+  runs on each rank's local tensors (:func:`_matcher_on_mesh`): the
+  adjacency rows (the dense block or the hier summary) stay split over
+  ``model``, everything else is gathered whole, and every rank runs the
+  single-device step in its order, the same loop, readbacks and
+  collectives; only Eq. 2 divides its work (``engine_step``'s split
+  refine, on each rank's own rows, ANDed across ``model``);
 * the LM cells run the models' mesh paths: ``fn`` builds the config
   with the mesh fields the reference sets (``Cell.static["cfg"]``; the
   fields alone in ``Cell.static["mesh_fields"]``), binds the parameter
@@ -86,10 +92,10 @@ from ..models.recsys import DIN
 from ..models.transformer import (init_decode_state, lm_decode_step,
                                   lm_init, lm_logits, lm_loss)
 from ..training.optimizer import AdamWConfig, adamw_init, adamw_update
-from .mesh import axis_sizes
+from .mesh import axis_sizes, dp_axes
 from .sharding import (P, _axis_size, _sanitize, dp, greedy_layout_search,
-                       opt_specs, param_specs, tree_leaves_with_path,
-                       tree_map, tree_map_with_path)
+                       opt_specs, param_specs, placements,
+                       tree_leaves_with_path, tree_map, tree_map_with_path)
 
 def meta(shape, dtype) -> torch.Tensor:
     """A shape-and-dtype placeholder (``jax.ShapeDtypeStruct``)."""
@@ -617,6 +623,61 @@ def _replicated(cls):
     return cls(*([P()] * len(cls._fields)))
 
 
+def _matcher_on_mesh(body: Callable, gspec, out_specs) -> Callable:
+    """A matcher cell's ``fn``: ``body(g, *rest)`` as it is on plain
+    tensors; on ``DTensor``s, ``body`` on each rank's local tensors. The
+    graph's row-split table (``adj_bitmap``, or ``adj_summary`` with the
+    hier layout) is placed by ``gspec`` and taken as this rank's rows
+    (``GraphArrays.split`` says which); every other argument is gathered
+    whole (the per-row lanes over the data axes, in row order), so every
+    rank runs the same single-device step. The outputs are placed by
+    ``out_specs`` (per-row lanes: this rank's rows of the whole result);
+    a donated bank, updated in place, is returned as the ``DTensor``
+    that came in."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    from ..core.engine_step import RowSplit
+    from ..models.layers import constrain, constrain_to
+
+    def fn(g, *rest):
+        dts = [t for _, t in tree_leaves_with_path((g, rest))
+               if isinstance(t, DTensor)]
+        if not dts:
+            return body(g, *rest)
+        mesh = dts[0].device_mesh
+        kept: dict = {}
+
+        def whole(t):
+            if not isinstance(t, DTensor):
+                return t
+            local = constrain_to(t, [Replicate()] * mesh.ndim).to_local()
+            kept[id(local)] = (local, t)
+            return local
+
+        name = "adj_bitmap" if g.chunk_data is None else "adj_summary"
+        spec = getattr(gspec, name)            # P("model", None)
+        table = constrain_to(getattr(g, name), placements(spec, mesh))
+        _, offset = compute_local_shape_and_global_offset(
+            table.shape, mesh, table.placements)
+        local_g = tree_map(whole, g._replace(**{name: None}))._replace(**{
+            name: table.to_local(),
+            "split": RowSplit(mesh, spec[0], int(offset[0]),
+                              int(table.shape[0]), dp_axes(mesh))})
+        out = body(local_g, *tree_map(whole, rest))
+        specs = dict(tree_leaves_with_path(out_specs))
+
+        def place(path, t):
+            if id(t) in kept and kept[id(t)][0] is t:
+                return kept[id(t)][1]
+            dt = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+            return constrain(dt, specs[path])
+        return tree_map_with_path(place, out)
+    return fn
+
+
 def _matcher_cell(spec: ArchSpec, cell: ShapeCell, mesh) -> Cell:
     """The multi-query wave program (``expand_wave_mq``) that the
     shared-wave scheduler dispatches: slot-stacked query banks and
@@ -642,7 +703,7 @@ def _matcher_cell(spec: ArchSpec, cell: ShapeCell, mesh) -> Cell:
              _sanitize(P(dpa), (f,), mesh),
              _sanitize(P(dpa), (f,), mesh))
 
-    def step(g, qb, tb, frontier, used, phi, row_valid, query_slot,
+    def body(g, qb, tb, frontier, used, phi, row_valid, query_slot,
              depth):
         return expand_wave_mq(g, qb, tb, frontier, used, phi, row_valid,
                               query_slot, depth, kpr=kpr), tb
@@ -660,11 +721,12 @@ def _matcher_cell(spec: ArchSpec, cell: ShapeCell, mesh) -> Cell:
         n_leftover=_sanitize(P(dpa), (f,), mesh),
         n_pruned=_sanitize(P(dpa), (f,), mesh),
         n_inj=_sanitize(P(dpa), (f,), mesh))
-    return Cell(spec.arch_id, cell.name, step,
+    out_spec = (res_spec, _replicated(PatternStoreBank))
+    return Cell(spec.arch_id, cell.name,
+                _matcher_on_mesh(body, gspec, out_spec),
                 (g, qb, tb, frontier, used, phi, row_valid, query_slot,
                  depth),
-                (gspec, qbspec, tbspec) + fspec,
-                (res_spec, _replicated(PatternStoreBank)))
+                (gspec, qbspec, tbspec) + fspec, out_spec)
 
 
 def _matcher_stack_cell(spec: ArchSpec, cell: ShapeCell, mesh) -> Cell:
@@ -706,14 +768,15 @@ def _matcher_stack_cell(spec: ArchSpec, cell: ShapeCell, mesh) -> Cell:
     sbspec = tree_map(lambda x: P(*([None] * x.dim())), sb)
     rspec = _sanitize(P(dpa), (f,), mesh)
 
-    def step(g, qb, tb, sb, in_root, in_rid, in_slot, in_valid, active):
+    def body(g, qb, tb, sb, in_root, in_rid, in_slot, in_valid, active):
         return run_device_megastep(
             g, qb, tb, sb, in_root, in_rid, in_slot, in_valid, active,
             1, True, t_max, kpr=kpr, emb_cap=emb_cap)
 
     out_spec = _replicated(DeviceResult)._replace(
         tb=_replicated(PatternStoreBank), sb=_replicated(StackBank))
-    return Cell(spec.arch_id, cell.name, step,
+    return Cell(spec.arch_id, cell.name,
+                _matcher_on_mesh(body, gspec, out_spec),
                 (g, qb, tb, sb, in_root, in_rid, in_slot, in_valid,
                  active),
                 (gspec, qbspec, tbspec, sbspec, rspec, rspec, rspec,
@@ -722,9 +785,12 @@ def _matcher_stack_cell(spec: ArchSpec, cell: ShapeCell, mesh) -> Cell:
 
 
 def matcher_args(dims: dict, data, queries, device="cuda") -> tuple:
-    """Real arguments for a matcher cell of ``dims`` (dense layout):
-    ``data`` (a ``Graph`` of ``dims["n_vertices"]`` vertices) in
-    ``GraphArrays``, up to ``n_slots`` ``queries`` installed one a slot
+    """Real arguments for a matcher cell of ``dims``: ``data`` (a
+    ``Graph`` of ``dims["n_vertices"]`` vertices) in ``GraphArrays``,
+    the dense block, or with ``hier_adjacency`` the two-level layout of
+    ``dims.get("chunk_words", 8)``-word chunks from the scheduler's
+    builder (``Graph.hier_bitmap``; its ``kmax`` the static field), up
+    to ``n_slots`` ``queries`` installed one a slot
     by ``load_slots`` into empty banks, and one row for each root
     candidate of theirs taken round robin over the slots, up to the wave
     size: root lanes for the stack cell, depth-1 frontier rows (root
@@ -737,8 +803,8 @@ def matcher_args(dims: dict, data, queries, device="cuda") -> tuple:
     from ..patterns.store import PatternStore, PatternStoreBank
     dev = resolve_device(device)
     v = dims["n_vertices"]
-    if data.n != v or dims.get("hier_adjacency"):
-        raise ValueError(f"a dense graph of {v} vertices is needed, got "
+    if data.n != v:
+        raise ValueError(f"a graph of {v} vertices is needed, got "
                          f"{data.n}")
     w = (v + 31) // 32
     s = dims.get("n_slots", 16)
@@ -752,9 +818,17 @@ def matcher_args(dims: dict, data, queries, device="cuda") -> tuple:
         return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
                                 else a).to(dev)
 
-    g = GraphArrays(adj_bitmap=i32(data.adj_bitmap),
-                    n_vertices=torch.tensor(v, dtype=torch.int32,
-                                            device=dev))
+    n_vertices = torch.tensor(v, dtype=torch.int32, device=dev)
+    if dims.get("hier_adjacency"):
+        hb = data.hier_bitmap(chunk_words=int(dims.get("chunk_words", 8)))
+        g = GraphArrays(adj_bitmap=None, n_vertices=n_vertices,
+                        adj_summary=i32(hb.summary),
+                        chunk_ptr=i32(hb.chunk_ptr),
+                        chunk_id=i32(hb.chunk_id),
+                        chunk_data=i32(hb.chunk_data), kmax=hb.kmax)
+    else:
+        g = GraphArrays(adj_bitmap=i32(data.adj_bitmap),
+                        n_vertices=n_vertices)
     qb = QueryBank.empty(s, w, dev)
     tb = PatternStoreBank.empty(s, cap, dev)
     cands, nbrs, roots = [], [], []

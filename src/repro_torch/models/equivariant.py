@@ -25,7 +25,7 @@ from torch import nn
 
 from ..kernels.config import resolve_device
 from .gnn import segment_sum
-from .layers import Dense, dense, normal, remat
+from .layers import Dense, dense, einsum, normal, remat, reshape
 
 _N_PATHS = 9   # tensor-product paths of _edge_messages
 
@@ -62,8 +62,11 @@ def bessel_basis(r: torch.Tensor, n: int, cutoff: float) -> torch.Tensor:
 def _traceless_sym(m: torch.Tensor) -> torch.Tensor:
     """Project [..., 3, 3] onto traceless-symmetric (the l=2 rep)."""
     sym = 0.5 * (m + m.transpose(-1, -2))
-    tr = sym.diagonal(dim1=-2, dim2=-1).sum(-1)[..., None, None]
-    return sym - tr * torch.eye(3, device=m.device, dtype=m.dtype) / 3.0
+    eye = torch.eye(3, device=m.device, dtype=m.dtype)
+    # the trace as a masked sum: DTensor has no rule for the backward of
+    # ``diagonal``
+    tr = (sym * eye).sum((-2, -1))[..., None, None]
+    return sym - tr * eye / 3.0
 
 
 # ----------------------------------------------------------------- layers
@@ -154,19 +157,19 @@ def _edge_messages(layer: EquivLayer, cfg: EquivConfig, s, v, T, src,
     rhat = rvec / torch.clamp(r, min=1e-9)[:, None]          # [E, 3]
     rbf = bessel_basis(r, cfg.n_rbf, cfg.cutoff)             # [E, nrbf]
     w = dense(layer.rad2, F.silu(dense(layer.rad1, rbf)))
-    w = w.reshape(-1, _N_PATHS, c)                           # [E, P, C]
+    w = reshape(w, -1, _N_PATHS, c)                          # [E, P, C]
 
     s_j, v_j, T_j = s[src], v[src], T[src]
     Y2 = _traceless_sym(rhat[:, None, :] * rhat[:, :, None])  # [E, 3, 3]
 
     # scalar messages: (0x0->0), (1x1->0), (2x2->0)
     m_s = (w[:, 0] * s_j
-           + w[:, 1] * torch.einsum("eci,ei->ec", v_j, rhat)
-           + w[:, 2] * torch.einsum("ecij,eij->ec", T_j, Y2))
+           + w[:, 1] * einsum("eci,ei->ec", v_j, rhat)
+           + w[:, 2] * einsum("ecij,eij->ec", T_j, Y2))
     # vector messages: (0x1->1), (1x0->1), (2x1->1)
     m_v = (w[:, 3, :, None] * s_j[:, :, None] * rhat[:, None, :]
            + w[:, 4, :, None] * v_j
-           + w[:, 5, :, None] * torch.einsum("ecij,ej->eci", T_j, rhat))
+           + w[:, 5, :, None] * einsum("ecij,ej->eci", T_j, rhat))
     # tensor messages: (0x2->2), (1x1->2), (2x0->2)
     outer_vr = _traceless_sym(v_j[..., :, None] * rhat[:, None, None, :])
     m_T = (w[:, 6, :, None, None] * s_j[:, :, None, None] * Y2[:, None]
@@ -179,18 +182,19 @@ def _update(layer: EquivLayer, cfg: EquivConfig, s, v, T, As, Av, AT):
     """Equivariant update with the optional MACE higher-order products."""
     s_feats, v_feats, t_feats = [As], [Av], [AT]
     if cfg.correlation >= 2:      # two-body products of aggregates
-        s_feats += [torch.einsum("nci,nci->nc", Av, Av),
-                    torch.einsum("ncij,ncij->nc", AT, AT)]
-        v_feats += [torch.einsum("ncij,ncj->nci", AT, Av)]
+        at_av = einsum("ncij,ncj->nci", AT, Av)
+        s_feats += [einsum("nci,nci->nc", Av, Av),
+                    einsum("ncij,ncij->nc", AT, AT)]
+        v_feats += [at_av]
         t_feats += [_traceless_sym(Av[..., :, None] * Av[..., None, :])]
     if cfg.correlation >= 3:      # three-body invariants
         s_feats += [As * As,
-                    As * torch.einsum("nci,nci->nc", Av, Av),
-                    torch.einsum("nci,ncij,ncj->nc", Av, AT, Av)]
+                    As * einsum("nci,nci->nc", Av, Av),
+                    einsum("nci,nci->nc", Av, at_av)]
     s_new = dense(layer.mix_s, torch.cat(s_feats, dim=-1))
-    v_new = torch.einsum("nki,kc->nci", torch.cat(v_feats, dim=1),
+    v_new = einsum("nki,kc->nci", torch.cat(v_feats, dim=1),
                          layer.mix_v.w)
-    T_new = torch.einsum("nkij,kc->ncij", torch.cat(t_feats, dim=1),
+    T_new = einsum("nkij,kc->ncij", torch.cat(t_feats, dim=1),
                          layer.mix_t.w)
     # gated nonlinearity: scalars gate the higher orders
     gates = torch.sigmoid(dense(layer.gate, F.silu(s_new)))

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.config import resolve_device
-from .layers import Dense, dense, zeros
+from .layers import Dense, dense, take_rows, zeros
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,7 +133,7 @@ def gnn_forward_sampled(params: GNN, cfg: GNNConfig, feats: list,
     for i, layer in enumerate(params.layers):
         new_h = []
         for kk in range(cfg.n_layers - i):
-            nbrs = h[kk + 1][nbr_idx[kk].long()]              # [N, f, d]
+            nbrs = take_rows(h[kk + 1], nbr_idx[kk].long())   # [N, f, d]
             valid = nbr_valid[kk][..., None].to(nbrs.dtype)
             if cfg.kind == "gcn":
                 # include self in the normalised mean (A+I semantics)

@@ -243,6 +243,18 @@ def reshape(x, *shape):
     return _Reshape.apply(x, tuple(shape))
 
 
+def take_rows(table, idx):
+    """``table[idx]`` for an integer ``idx`` of any rank: the rows of the
+    flat index, reshaped to ``idx.shape + table.shape[1:]`` (the same
+    values). On ``DTensor``s a flat index is what torch 2.11's DTensor
+    can differentiate: its ``index_put`` rule, the backward of a gather,
+    computes a negative dimension for an index of two or more
+    dimensions (layout only)."""
+    if idx.dim() == 1:
+        return table[idx]
+    return reshape(table[reshape(idx, -1)], *idx.shape, *table.shape[1:])
+
+
 class _ScaleGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale: float):

@@ -19,7 +19,7 @@ from torch import nn
 
 from ..kernels.config import resolve_device
 from .gnn import segment_sum
-from .layers import Dense, dense, normal
+from .layers import Dense, dense, normal, take_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,8 +90,8 @@ def _mlp(layers, x, act=F.relu):
 
 
 def _embed(p: DIN, item_ids, cat_ids) -> torch.Tensor:
-    return torch.cat([p.item_table[item_ids.long()],
-                      p.cat_table[cat_ids.long()]], dim=-1)
+    return torch.cat([take_rows(p.item_table, item_ids.long()),
+                      take_rows(p.cat_table, cat_ids.long())], dim=-1)
 
 
 def din_attention_pool(p: DIN, hist, target, mask) -> torch.Tensor:

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..kernels.bitops import mul32, u32
+from ..roofline.hlo_cost import loop_condition
 
 MASK_WORDS = 2          # dead-end masks cover up to 64 query positions
 PROBE = 8               # linear-probe window length
@@ -216,8 +217,8 @@ def hash_insert(bank: PatternStoreBank, slot: torch.Tensor,
     n_slots = bank.valid.shape[0]
     counters = StoreCounters.zeros(n_slots, valid.device)
     remaining = valid
-    for _ in range(INSERT_ROUNDS):
-        if not bool(remaining.any()):
+    for r in range(INSERT_ROUNDS):
+        if not loop_condition(remaining.any(), r == 0):
             break
         round_counters, remaining = _insert_round(
             bank, slot, key_pos, key_v, phis, mus, masks, remaining)

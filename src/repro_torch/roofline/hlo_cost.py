@@ -32,8 +32,13 @@ and a dispatch mode counts every op that runs on this rank's shards:
 
 An op on ``DTensor``s is not counted itself: the local ops DTensor runs
 for it are (``CommDebugMode``, inside the counter, takes the DTensor
-op; what it runs reaches the counter). ``unresolved_loops`` stays 0:
-an eager run unrolls every loop, so there is no trip count to resolve.
+op; what it runs reaches the counter). An eager run unrolls every
+loop, so most loops have a trip count; the matcher's loops are the
+exception: their condition is a value read back to the host
+(``loop_condition``), which a ``meta`` tensor does not hold. There the
+body is counted once and ``unresolved_loops`` gains 1, as the
+reference's counter does for a ``while`` whose trip count it cannot
+resolve.
 """
 from __future__ import annotations
 
@@ -75,6 +80,34 @@ class HloCost:
     unresolved_loops: int = 0
     coll_count: int = 0
     peak_bytes: float = 0.0      # arguments + the most held at once
+
+
+def loop_condition(cond: torch.Tensor, first: bool) -> bool:
+    """``bool(cond)``, a loop's condition read back to the host; ``first``
+    says whether the body has not run yet. On a ``meta`` tensor (a
+    dry-run's count) the body runs once: True before it, False after,
+    and the count in progress (the innermost ``_Counter`` mode) records
+    one unresolved loop."""
+    if not cond.is_meta:
+        return bool(cond)
+    if first:
+        from torch.utils._python_dispatch import (
+            _get_current_dispatch_mode_stack)
+        counters = [m for m in _get_current_dispatch_mode_stack()
+                    if isinstance(m, _Counter)]
+        if counters:
+            counters[-1].cost.unresolved_loops += 1
+    return first
+
+
+def loop_bound(n: torch.Tensor) -> int:
+    """``int(n)``, a loop's trip count read back to the host; on a
+    ``meta`` tensor 1, recorded as an unresolved loop
+    (:func:`loop_condition`)."""
+    if not n.is_meta:
+        return int(n)
+    loop_condition(n, True)
+    return 1
 
 
 class _Block:

@@ -79,6 +79,36 @@ def test_cuda_refine_kernel_rejects_bad_inputs(cuda_device):
         bitmap_refine.refine_bitmap_rows(adj, cand, frontier.cpu(), active)
 
 
+def test_cuda_refine_kernels_refuse_a_dtensor(cuda_device):
+    """A card ``DTensor`` (whose ``data_ptr()`` is 0) raises
+    ``TypeError`` at either refine entry point, with no launch."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.launch import mesh as T_MESH
+    adj, cand, frontier, active = [t.to(cuda_device)
+                                   for t in _inputs(64, 4, 8, 6)]
+    lanes, kmax, _ = _hier_inputs(64, 4, 8, 4, 6)
+    lanes = [t.to(cuda_device) for t in lanes]
+    T_MESH.init_fake_group(1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("model",))
+        d_cand = DTensor.from_local(cand, mesh, [Replicate()],
+                                    run_check=False)
+        before = (bitmap_refine.LAUNCHES, bitmap_refine.HIER_LAUNCHES)
+        with pytest.raises(TypeError, match="cand_rows"):
+            bitmap_refine.refine_bitmap_rows(adj, d_cand, frontier, active)
+        with pytest.raises(TypeError, match="cand_rows"):
+            bitmap_refine.refine_bitmap_rows_hier(*lanes, kmax, d_cand,
+                                                  frontier, active)
+        torch.cuda.synchronize()
+        assert (bitmap_refine.LAUNCHES,
+                bitmap_refine.HIER_LAUNCHES) == before
+    finally:
+        dist.destroy_process_group()
+
+
 def _hier_inputs(v, f, np_, cw, seed):
     """A random symmetric graph's two-level layout and refine inputs,
     with ``-1``, past-V and all-inactive rows among them."""

@@ -22,6 +22,11 @@ no card and no compiler.
   for one that fails and for one stopped at its time limit.
 * ``mem_per_device_bytes``: the argument shards plus the most bytes held
   at once, on a function whose lifetimes are known.
+* Every non-LM cell, the paper's matcher cells included, counted on four
+  fake ranks on ``meta`` (2 x 2 and 2 x 1 x 2): GNN, equivariant, DIN and
+  matcher cells alike, but nequip and mace ``ogb_products`` (minutes a
+  count). The matcher's loops whose condition a ``meta`` tensor cannot
+  answer are counted once each as unresolved loops.
 """
 import dataclasses
 import json
@@ -286,3 +291,67 @@ def test_roofline_terms_and_keys():
     # an H100 SXM5's, not a TPU's
     assert (T_AN.PEAK_FLOPS, T_AN.HBM_BW, T_AN.LINK_BW) == (989e12, 3.35e12,
                                                            450e9)
+
+
+HOST_MESHES = {"2x2": ((2, 2), ("data", "model")),
+               "2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
+NON_LM = [(a, c) for a, c in T_REG.all_cells(include_matcher=True)
+          if T_REG.ARCHS[a].family != "lm"
+          and not (a in ("nequip", "mace") and c == "ogb_products")]
+COUNT_LIMIT_S = 300
+
+
+def _count_on_four_ranks(mesh_name: str, arch: str, shape: str):
+    T_MESH.init_fake_group(4)
+    try:
+        mesh = T_MESH.make_host_test_mesh(*HOST_MESHES[mesh_name])
+        cell = T_STEPS.build_cell(arch, shape, mesh)
+        args = T_SH.distribute(cell.args, cell.in_specs, mesh)
+        with T_DRY.time_limit(COUNT_LIMIT_S):
+            return T_HC.count_run(cell.fn, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+NON_LM_IDS = [(m, a, c) for m in HOST_MESHES for a, c in NON_LM]
+
+
+@pytest.mark.parametrize("mesh_name,arch,shape", NON_LM_IDS,
+                         ids=[f"{m}-{a}-{c}" for m, a, c in NON_LM_IDS])
+def test_every_non_lm_cell_counts_on_four_ranks(mesh_name, arch, shape):
+    cost = _count_on_four_ranks(mesh_name, arch, shape)
+    assert cost.flops > 0 and cost.bytes > 0 and cost.peak_bytes > 0
+    assert cost.coll_bytes > 0          # the lanes and gradients cross
+    if arch == "paper-matcher":
+        # the split refine's partial words gathered over "model"
+        assert cost.coll_by_kind["all-gather"] > 0
+
+
+def test_the_stack_cell_counts_its_loops_as_unresolved():
+    """The megastep's condition, its drain's and the store's insert
+    rounds are read back to the host: on ``meta`` each body is counted
+    once, an unresolved loop each; the wave cell has no such loop."""
+    stacks = _count_on_four_ranks("2x2", "paper-matcher",
+                                  "yeast_scale_stacks")
+    wave = _count_on_four_ranks("2x2", "paper-matcher", "yeast_scale")
+    assert stacks.unresolved_loops >= 1 and wave.unresolved_loops == 0
+    assert stacks.flops > wave.flops > 0
+
+
+def test_a_loop_condition_reads_values_and_counts_meta_once():
+    assert T_HC.loop_condition(torch.tensor(True), False) is True
+    assert T_HC.loop_bound(torch.tensor(7)) == 7
+    cond = torch.empty((), dtype=torch.bool, device="meta")
+    seen = []
+
+    def loop(x):
+        i = 0
+        while T_HC.loop_condition(cond, i == 0):
+            seen.append(i)
+            x = x + 1
+            i += 1
+        return x * T_HC.loop_bound(torch.empty((), dtype=torch.int64,
+                                               device="meta"))
+    cost = T_HC.count_run(loop, torch.empty(8, device="meta"))
+    assert seen == [0] and cost.unresolved_loops == 2
+    assert cost.flops == 16

@@ -123,3 +123,52 @@ def test_backend_env_var_is_the_ports_own():
     assert config.ENV_VAR != "REPRO_KERNEL_BACKEND"
     with pytest.raises(ValueError):
         config.set_backend("pallas")
+
+
+@pytest.mark.parametrize("backend", [None, "torch", "cuda"])
+def test_refine_entry_points_refuse_a_dtensor(backend):
+    """A ``DTensor``'s ``data_ptr()`` is 0, so no kernel may be handed
+    one: each refine entry point raises ``TypeError`` naming the
+    argument, before any backend choice (a forced ``"cuda"`` on these
+    CPU tensors would raise ``RuntimeError`` there), and launches
+    nothing."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.core.graph import build_hier_bitmap
+    from repro_torch.launch import mesh as T_MESH
+    adj, cand, frontier, active = (_t(a) for a in _inputs(48, 3, 6, 0))
+    dense = adj.numpy().view(np.uint32)
+    rows = [np.flatnonzero(np.unpackbits(r.view(np.uint8),
+                                         bitorder="little")[:48])
+            for r in dense]
+    hb = build_hier_bitmap(48, np.cumsum([0] + [len(r) for r in rows]),
+                           np.concatenate(rows), chunk_words=1)
+    lanes = [_t(hb.summary), _t(hb.chunk_ptr), _t(hb.chunk_id),
+             _t(hb.chunk_data)]
+    T_MESH.init_fake_group(1)
+    try:
+        mesh = T_MESH.make_host_test_mesh()
+
+        def dt(t):
+            return DTensor.from_local(t, mesh, [Replicate()] * 2,
+                                      run_check=False)
+        before = (bitmap_refine.LAUNCHES, bitmap_refine.HIER_LAUNCHES)
+        for i, name in enumerate(("adj_bitmap", "cand_rows", "frontier",
+                                  "active")):
+            args = [adj, cand, frontier, active]
+            args[i] = dt(args[i])
+            with pytest.raises(TypeError, match=name):
+                bitmap_refine.refine_bitmap_rows(*args, backend=backend)
+        names = ("summary", "chunk_ptr", "chunk_id", "chunk_data",
+                 "cand_rows", "frontier", "active")
+        for i, name in enumerate(names):
+            args = lanes + [cand, frontier, active]
+            args[i] = dt(args[i])
+            with pytest.raises(TypeError, match=name):
+                bitmap_refine.refine_bitmap_rows_hier(
+                    *args[:4], hb.kmax, *args[4:], backend=backend)
+        assert (bitmap_refine.LAUNCHES,
+                bitmap_refine.HIER_LAUNCHES) == before
+    finally:
+        dist.destroy_process_group()

@@ -292,14 +292,24 @@ MATCHER_DIMS = dict(n_vertices=256, wave_size=64, kpr=4, n_slots=4,
                     pattern_capacity=256)
 
 
-@pytest.mark.parametrize("stacks", [False, True], ids=["wave", "stacks"])
-def test_matcher_cells_equal_the_reference(one_device_meshes, stacks):
+@pytest.mark.parametrize("stacks,on_dtensors", [
+    (False, False), (True, False), (False, True), (True, True)],
+    ids=["wave", "stacks", "wave-dtensors", "stacks-dtensors"])
+def test_matcher_cells_equal_the_reference(one_device_meshes, stacks,
+                                           on_dtensors):
+    """On plain tensors, and on ``DTensor``s placed by the cell's specs
+    over the one-rank group (the mesh step: local tensors, the split
+    refine), read back whole."""
     dims = dict(MATCHER_DIMS, **({"stack_capacity": 128,
                                   "megastep_depth": 6} if stacks else {}))
     t_cell, j_cell, args = _matcher_pair(dims, one_device_meshes)
     ref_args = _to_ref(args, j_cell.args)
     want = jax.jit(j_cell.fn)(*ref_args)
-    got = t_cell.fn(*_clone(args))
+    if on_dtensors:
+        got = T_SH.full(t_cell.fn(*T_SH.distribute(
+            _clone(args), t_cell.in_specs, one_device_meshes[0])))
+    else:
+        got = t_cell.fn(*_clone(args))
     assert _compare(got, want, "out") >= 10
     if stacks:
         assert int(got.d_expanded.sum()) > 0 and int(got.d_rows.sum()) > 0
