@@ -624,6 +624,8 @@ def serve(dev, wl, capture=None) -> dict:
             if attr:
                 setattr(engine_step, attr, real)
         sched = srv.scheduler
+        spans = sched.spans.snapshot()
+        readback = spans.get("step.dispatch.readback", {"n": 0, "s": 0.0})
         # no tuning record is committed: every serving run keeps the
         # built-in knobs (a stray TUNING_CACHE_TORCH.json would move them)
         require(sched.tuning_record["source"] == "builtin",
@@ -634,10 +636,11 @@ def serve(dev, wl, capture=None) -> dict:
                      "slo": srv.slo_report(), "launches": launches,
                      "variant": sched.adjacency_variant,
                      "iterations": sched.timing["iterations"],
-                     "readback_s": sched.timing["readback_s"],
-                     "readbacks": sched.timing["readbacks"],
+                     "readback_s": readback["s"],
+                     "readbacks": readback["n"],
                      "dispatches": sched.n_dispatches,
-                     "dispatch_s": sched.t_dispatch_s,
+                     "dispatch_s": spans.get("step.dispatch",
+                                             {"s": 0.0})["s"],
                      "exports": sched.n_exported}
     return out
 

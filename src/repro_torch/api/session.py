@@ -29,6 +29,7 @@ API: both backends yield unions identical to their blocking results.
 from __future__ import annotations
 
 import collections
+import contextlib
 import queue as _queue
 import threading
 import time
@@ -90,31 +91,41 @@ class MatchSession:
         Raises :class:`QueueFull` when the bounded admission queue is at
         capacity (typed backpressure — callers shed load or drain via
         ``step()``). ``query_id`` sets the caller-visible id on the
-        result (defaults to the engine-assigned id).
+        result (defaults to the engine-assigned id). On the engine
+        backend the call is the scheduler's ``submit`` span, carrying
+        that id.
         """
-        opts = MatchOptions.resolve(
-            options if options is not None else self.options, **overrides)
-        req = MatchRequest(query=query, options=opts, request_id=query_id,
-                           cand=cand, order=order)
-        h = MatchHandle(self, req)
-        h._t_submit = time.perf_counter()
-        if self.backend == "engine":
-            sched_qid = self.scheduler.submit(
-                query, options=opts, cand=cand, order=order,
-                on_embeddings=h._push)
-            h._sched_qid = sched_qid
-            h.query_id = sched_qid if query_id is None else query_id
-            self._handles[sched_qid] = h
-            self._drain()          # trivial queries retire inside submit
-        else:
-            if len(self._pending) >= opts.max_queue:
-                raise QueueFull(
-                    f"admission queue at capacity ({opts.max_queue})")
-            if query_id is None:
-                h.query_id = self._next_seq
-            self._next_seq += 1
-            self._pending.append(h)
-        return h
+        sched = self.scheduler
+        span = (contextlib.nullcontext() if sched is None else
+                sched.spans.span("submit", sched.next_qid
+                                 if query_id is None else query_id))
+        with span:
+            opts = MatchOptions.resolve(
+                options if options is not None else self.options,
+                **overrides)
+            req = MatchRequest(query=query, options=opts,
+                               request_id=query_id, cand=cand, order=order)
+            h = MatchHandle(self, req)
+            h._t_submit = time.perf_counter()
+            if self.backend == "engine":
+                sched_qid = sched.submit(
+                    query, options=opts, cand=cand, order=order,
+                    on_embeddings=h._push)
+                h._sched_qid = sched_qid
+                h.query_id = sched_qid if query_id is None else query_id
+                self._handles[sched_qid] = h
+                # trivial queries retire inside submit
+                with sched.spans.span("retire"):
+                    self._drain()
+            else:
+                if len(self._pending) >= opts.max_queue:
+                    raise QueueFull(
+                        f"admission queue at capacity ({opts.max_queue})")
+                if query_id is None:
+                    h.query_id = self._next_seq
+                self._next_seq += 1
+                self._pending.append(h)
+            return h
 
     # ------------------------------------------------------------------
     # driving

@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 
 from .graph import Graph
+from .spans import Spans, maybe
 
 
 def ldf_filter(query: Graph, data: Graph) -> list[np.ndarray]:
@@ -115,11 +116,16 @@ def cfl_refine(query: Graph, data: Graph, cand: list[np.ndarray],
 
 def build_candidates(query: Graph, data: Graph,
                      use_nlf: bool = True,
-                     use_cfl: bool = True) -> list[np.ndarray]:
-    """Default filtering pipeline: LDF (+NLF) (+CFL-lite fixpoint)."""
-    cand = ldf_filter(query, data)
+                     use_cfl: bool = True,
+                     spans: Spans | None = None) -> list[np.ndarray]:
+    """Default filtering pipeline: LDF (+NLF) (+CFL-lite fixpoint); each
+    filter is a span (``ldf``, ``nlf``, ``cfl``) of ``spans`` when given."""
+    with maybe(spans, "ldf"):
+        cand = ldf_filter(query, data)
     if use_nlf:
-        cand = nlf_filter(query, data, cand)
+        with maybe(spans, "nlf"):
+            cand = nlf_filter(query, data, cand)
     if use_cfl:
-        cand = cfl_refine(query, data, cand)
+        with maybe(spans, "cfl"):
+            cand = cfl_refine(query, data, cand)
     return cand

@@ -35,7 +35,6 @@ kernel for tensors on the card, its plain version for CPU tensors.
 from __future__ import annotations
 
 import functools
-import time
 from typing import NamedTuple
 
 import torch
@@ -49,6 +48,7 @@ from ..patterns.store import (MASK_WORDS, PatternStore, PatternStoreBank,
                               StoreCounters, hash_insert, hash_probe,
                               masked_put_)
 from ..roofline.hlo_cost import loop_condition
+from .spans import Spans, maybe
 
 N_PAD = 64              # padded query size
 I32 = torch.int32
@@ -600,7 +600,7 @@ def run_megastep_mq(g: GraphArrays, qb: QueryBank, tb: PatternStoreBank,
                     st_valid, id_base: int, learn_enabled: bool,
                     kpr: int = 8, k_depth: int = 4, capacity: int = 1024,
                     emb_cap: int = 512,
-                    timing: dict | None = None) -> MegaResult:
+                    spans: Spans | None = None) -> MegaResult:
     """Fused expand → assemble → pattern-store over up to ``k_depth``
     consecutive depth-steps of a host-packed wave (see the reference for
     the ring-buffer design). The host's batched pattern flush (``st_*``)
@@ -608,9 +608,10 @@ def run_megastep_mq(g: GraphArrays, qb: QueryBank, tb: PatternStoreBank,
     head, appends surviving non-last children at the tail, emits
     last-level children as embeddings and stores Lemma-1 patterns
     in-loop. The chunk's appended-row and embedding counts are read
-    back once per iteration (``timing`` counts them), so head, tail and
-    the loop condition are host integers — the reference's stopping
-    point exactly."""
+    back once per iteration (a ``readback`` span of ``spans``, which
+    also counts the ``iterations``), so head, tail and the loop
+    condition are host integers — the reference's stopping point
+    exactly."""
     f_step, w = used.shape
     c = capacity
     if c < f_step * (kpr + 1) or emb_cap < f_step * kpr:
@@ -740,14 +741,11 @@ def run_megastep_mq(g: GraphArrays, qb: QueryBank, tb: PatternStoreBank,
             (slot_c,), torch.where(m, n_child_c + n_emb_row_c, 0).to(I32),
             accumulate=True)
 
-        t0 = time.perf_counter()
-        n_new, n_emb_new = torch.stack([app_valid.sum(),
-                                        emb_valid.sum()]).tolist()
-        if timing is not None:
-            timing["iterations"] = timing.get("iterations", 0) + 1
-            timing["readbacks"] = timing.get("readbacks", 0) + 1
-            timing["readback_s"] = (timing.get("readback_s", 0.0)
-                                    + time.perf_counter() - t0)
+        with maybe(spans, "readback"):
+            n_new, n_emb_new = torch.stack([app_valid.sum(),
+                                            emb_valid.sum()]).tolist()
+        if spans is not None:
+            spans.count("iterations")
         head = min(head + f_step, tail)
         tail += n_new
         it += 1
@@ -906,17 +904,17 @@ def run_device_megastep(g: GraphArrays, qb: QueryBank,
                         learn_enabled: bool, t_max: int,
                         kpr: int = 8, emb_cap: int = 512,
                         wave: int | None = None,
-                        timing: dict | None = None) -> DeviceResult:
+                        spans: Spans | None = None) -> DeviceResult:
     """One dispatch of the device-resident scheduler loop.
 
     Admits root rows into free stack entries, then runs up to ``t_max``
     repack→expand→resolve iterations on the device (see the reference
     for each step), then a drain of at most 12 resolution sweeps. ``tb``
-    and ``sb`` are updated in place. ``timing``, when given, accumulates
-    ``iterations`` (loop iterations run, one Eq. 2 refine each),
-    ``readbacks`` (loop-condition reads to the host) and ``readback_s``
-    (host seconds blocked in them, which includes waiting for the
-    device to finish the queued work).
+    and ``sb`` are updated in place. ``spans``, when given, counts the
+    ``iterations`` (loop iterations run, one Eq. 2 refine each) and
+    takes each loop-condition read to the host as a ``readback`` span
+    (its seconds include waiting for the device to finish the queued
+    work).
     """
     r = in_root.shape[0]
     f = wave if wave is not None else r
@@ -933,13 +931,8 @@ def run_device_megastep(g: GraphArrays, qb: QueryBank,
     active = active.to(dev)
 
     def readback(cond: torch.Tensor, first: bool) -> bool:
-        t0 = time.perf_counter()
-        out = loop_condition(cond, first)
-        if timing is not None:
-            timing["readbacks"] = timing.get("readbacks", 0) + 1
-            timing["readback_s"] = (timing.get("readback_s", 0.0)
-                                    + time.perf_counter() - t0)
-        return out
+        with maybe(spans, "readback"):
+            return loop_condition(cond, first)
 
     # ---- root admission: place accepted inputs into free entries -------
     in_slot = in_slot.to(I64)
@@ -1158,8 +1151,8 @@ def run_device_megastep(g: GraphArrays, qb: QueryBank,
                                                 f)
 
         it += 1
-        if timing is not None:
-            timing["iterations"] = timing.get("iterations", 0) + 1
+        if spans is not None:
+            spans.count("iterations")
         n_emb = n_emb + n_emb_new
         id_ctr = id_ctr + n_alloc
         pat = pat.add(pat_c).add(pat_f)

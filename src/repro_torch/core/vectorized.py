@@ -66,6 +66,7 @@ from ..patterns import (DeadEndStats, PatternCache, PatternStore,
                         PatternStoreBank, age_hits, empty_entries,
                         entries_to_store, store_to_entries)
 from .backtrack import MatchResult, _prepare
+from .candidates import build_candidates
 from .faults import DISPATCH_ERRORS, FaultInjected, corrupt_digest
 from .engine_step import (N_PAD, STK_FREE, STK_FRESH, STK_LEFT, STK_RES,
                           STK_WAIT, DeviceResult, GraphArrays, MegaResult,
@@ -75,8 +76,10 @@ from .engine_step import (N_PAD, STK_FREE, STK_FRESH, STK_LEFT, STK_RES,
                           load_slots, read_store_slot, run_device_megastep,
                           run_megastep_mq, store_patterns_mq)
 from .graph import Graph, pack_bitmap
+from .ordering import connected_min_candidate_order
 from .segments import (EngineStats, QueryState, Segment, SegmentPool,
                        WorkItem, below, bit_of, mask64, words_from64)
+from .spans import Spans
 
 _log = logging.getLogger(__name__)
 
@@ -304,22 +307,17 @@ class WaveScheduler:
         self.total_steals = 0
         self.slot_rows_expanded = np.zeros(self.n_slots, np.int64)
         self.slot_children_created = np.zeros(self.n_slots, np.int64)
-        # host/device time split; on this eager path a dispatch runs to
-        # its end inside the call (its loop conditions are read back),
-        # so dispatch time holds the device time too
-        self.t_dispatch_s = 0.0
-        self.t_sync_s = 0.0
-        self.t_host_s = 0.0
-        self.t_admit_s = 0.0
-        self.t_digest_s = 0.0
-        self.t_retire_s = 0.0
-        self.t_flush_s = 0.0
         self.n_dispatches = 0
         self.n_exported = 0
-        # expansion iterations (one Eq. 2 refine pass each: megastep
-        # loop iterations plus single-step fresh waves) and the loop
-        # conditions read back to the host
-        self.timing = {"iterations": 0, "readbacks": 0, "readback_s": 0.0}
+        # the submit parts and step phases as spans (``core/spans.py``);
+        # on this eager path a dispatch runs to its end inside the call
+        # (its loop conditions are read back), so ``step.dispatch``
+        # holds the device time too. ``timing`` is the table's counter
+        # dict: "iterations" counts expansion iterations (one Eq. 2
+        # refine pass each: megastep loop iterations plus single-step
+        # fresh waves)
+        self.spans = Spans()
+        self.timing = self.spans.counters
         # fault tolerance (DESIGN.md §8): every hook is gated on its
         # knob (or ``_faults is None``)
         self.dispatch_timeout_s = opts.dispatch_timeout_s
@@ -338,6 +336,11 @@ class WaveScheduler:
     # ------------------------------------------------------------------
     # submission / admission
     # ------------------------------------------------------------------
+    @property
+    def next_qid(self) -> int:
+        """The query id the next :meth:`submit` assigns."""
+        return self._next_qid
+
     def submit(self, query: Graph, *, options: MatchOptions | None = None,
                cand: list[np.ndarray] | None = None,
                order: np.ndarray | None = None,
@@ -358,23 +361,34 @@ class WaveScheduler:
         t_submit = time.perf_counter()
         qid = self._next_qid
         self._next_qid += 1
+        if cand is None:
+            with self.spans.span("candidates"):
+                cand = build_candidates(query, self.data, spans=self.spans)
+        if order is None:
+            with self.spans.span("order"):
+                order = connected_min_candidate_order(query, cand)
         cand_by_pos, order, _pos_of, nbr_pos = _prepare(
             query, self.data, cand, order)
         n = query.n
-        cand_dense = np.zeros((N_PAD, self.data.n), bool)
-        for d in range(n):
-            cand_dense[d, cand_by_pos[d]] = True
-        nbr_mask = np.zeros((N_PAD, N_PAD), bool)
-        qnbr_bits = np.zeros(N_PAD, np.uint64)
-        for d in range(n):
-            bits = np.uint64(0)
-            for p in nbr_pos[d]:
-                nbr_mask[d, int(p)] = True
-                bits |= bit_of(int(p))
-            qnbr_bits[d] = bits
         learn = (self.use_pruning if opts.use_pruning is None
                  else opts.use_pruning)
-        cand_packed = pack_bitmap(cand_dense)
+        trivial = len(cand_by_pos[0]) == 0 or n == 1
+        with self.spans.span("pack"):
+            cand_dense = np.zeros((N_PAD, self.data.n), bool)
+            for d in range(n):
+                cand_dense[d, cand_by_pos[d]] = True
+            nbr_mask = np.zeros((N_PAD, N_PAD), bool)
+            qnbr_bits = np.zeros(N_PAD, np.uint64)
+            for d in range(n):
+                bits = np.uint64(0)
+                for p in nbr_pos[d]:
+                    nbr_mask[d, int(p)] = True
+                    bits |= bit_of(int(p))
+                qnbr_bits[d] = bits
+            cand_packed = pack_bitmap(cand_dense)
+            fingerprint = (PatternCache.fingerprint(n, cand_packed, nbr_mask)
+                           if not trivial and self.pattern_cache is not None
+                           and learn else None)
         req = _Request(
             query_id=qid, n=n, order=np.asarray(order, np.int32),
             roots=np.asarray(cand_by_pos[0], np.int32),
@@ -383,15 +397,12 @@ class WaveScheduler:
             max_rows=opts.max_recursions,
             time_budget_s=opts.time_budget_s,
             seed_patterns=opts.seed_patterns, keep_table=opts.keep_table,
-            t_submit=t_submit, fingerprint=None,
+            t_submit=t_submit, fingerprint=fingerprint,
             parallelism=max(1, int(opts.parallelism)),
             priority=int(opts.priority), on_embeddings=on_embeddings)
-        if len(req.roots) == 0 or n == 1:
+        if trivial:
             self._finish_trivial(req)
         else:
-            if self.pattern_cache is not None and learn:
-                req.fingerprint = PatternCache.fingerprint(
-                    n, cand_packed, nbr_mask)
             if len(self.queue) >= self.max_queue:
                 # shed_lowest: the overall lowest-priority request —
                 # queued or new, newest within a tie — finishes "shed"
@@ -487,8 +498,9 @@ class WaveScheduler:
                 entries = self.pattern_cache.get(req.fingerprint)
                 warm = entries is not None
             if entries is not None and len(entries["pos"]) > 0:
-                store = entries_to_store(entries, self.pattern_capacity,
-                                         self.device)
+                with self.spans.span("load"):
+                    store = entries_to_store(entries, self.pattern_capacity,
+                                             self.device)
             else:
                 store = self._empty_store
             loads.append((slot, req.cand_bitmap, req.nbr_mask, req.n,
@@ -552,7 +564,8 @@ class WaveScheduler:
             else:
                 self._admit_host_roots(q, req.roots)
             self.pool.attach(slot, q)
-        self._flush_slot_loads(loads, dev_clears)
+        with self.spans.span("load"):
+            self._flush_slot_loads(loads, dev_clears)
 
     def _flush_slot_loads(self, loads: list[tuple],
                           dev_clears: list[int]) -> None:
@@ -625,62 +638,59 @@ class WaveScheduler:
         q.emb_delivered = n
 
     def _finish(self, q: QueryState) -> None:
-        t0 = time.perf_counter()
-        f0 = self.t_flush_s
-        self._deliver(q)
-        q.materialize_hits()
-        want_cache = (self.pattern_cache is not None and q.learn
-                      and q.fingerprint is not None)
-        if (q.keep_table or want_cache) and q.store_buf:
-            # make patterns from the final resolutions visible in the
-            # snapshot
-            self._flush_stores(force=True)
-        # the retiring query's last insert counters fold while it still
-        # owns its slot
-        self._materialize_flush_counters()
-        q.status = "done"
-        q.evict()
-        q.stats.recursions = q.stats.rows_created
-        q.stats.wall_time_s = time.perf_counter() - q.t_submit
-        if q.parallelism > 1:
-            q.stats.shard_rows = q.shard_rows.tolist()
-            q.stats.shard_items = q.shard_items.tolist()
-        self.total_prunes += q.stats.deadend_prunes
-        self.total_rows_created += q.stats.rows_created
-        self.total_steals += q.stats.steals
-        ts = q.stats.table_stats
-        if isinstance(ts, DeadEndStats):
-            ts.hits = q.stats.deadend_prunes
-        if q.keep_table:
-            entries = store_to_entries(read_store_slot(self.tb, q.slot),
-                                       q.hit_counts)
+        with self.spans.span("finish"):
+            self._deliver(q)
+            q.materialize_hits()
+            want_cache = (self.pattern_cache is not None and q.learn
+                          and q.fingerprint is not None)
+            if (q.keep_table or want_cache) and q.store_buf:
+                # make patterns from the final resolutions visible in the
+                # snapshot
+                self._flush_stores(force=True)
+            # the retiring query's last insert counters fold while it still
+            # owns its slot
+            self._materialize_flush_counters()
+            q.status = "done"
+            q.evict()
+            q.stats.recursions = q.stats.rows_created
+            q.stats.wall_time_s = time.perf_counter() - q.t_submit
+            if q.parallelism > 1:
+                q.stats.shard_rows = q.shard_rows.tolist()
+                q.stats.shard_items = q.shard_items.tolist()
+            self.total_prunes += q.stats.deadend_prunes
+            self.total_rows_created += q.stats.rows_created
+            self.total_steals += q.stats.steals
+            ts = q.stats.table_stats
             if isinstance(ts, DeadEndStats):
-                ts.occupancy = len(entries["pos"])
-            self.tables[q.query_id] = entries
-            if want_cache:
-                self.pattern_cache.put(q.fingerprint, entries)
-        elif want_cache:
-            # defer: snapshot the slot store on the device; it becomes a
-            # cache line only if the same template is admitted again
-            snap = read_store_slot(self.tb, q.slot)
-            hits = dict(q.hit_counts) if q.hit_counts is not None else None
-            prev = self._pending_snaps.pop(q.fingerprint, None)
-            if prev is not None:
-                self.pattern_cache.put(q.fingerprint,
-                                       store_to_entries(*prev))
-            self._pending_snaps[q.fingerprint] = (snap, hits)
-            while len(self._pending_snaps) > max(8, 2 * self.n_slots):
-                old_fp, (old_snap, old_hits) = \
-                    self._pending_snaps.popitem(last=False)
-                self.pattern_cache.put(
-                    old_fp, store_to_entries(old_snap, old_hits))
-        self.finished[q.query_id] = MatchResult(q.embeddings, q.stats)
-        self._fresh_done.append(q.query_id)
-        if q.device and self.sb is not None:
-            clear_slot_stack(self.sb, q.slot)
-        self.pool.release(q.slot)
-        self.t_retire_s += (time.perf_counter() - t0
-                            - (self.t_flush_s - f0))
+                ts.hits = q.stats.deadend_prunes
+            if q.keep_table:
+                entries = store_to_entries(read_store_slot(self.tb, q.slot),
+                                           q.hit_counts)
+                if isinstance(ts, DeadEndStats):
+                    ts.occupancy = len(entries["pos"])
+                self.tables[q.query_id] = entries
+                if want_cache:
+                    self.pattern_cache.put(q.fingerprint, entries)
+            elif want_cache:
+                # defer: snapshot the slot store on the device; it becomes a
+                # cache line only if the same template is admitted again
+                snap = read_store_slot(self.tb, q.slot)
+                hits = dict(q.hit_counts) if q.hit_counts is not None else None
+                prev = self._pending_snaps.pop(q.fingerprint, None)
+                if prev is not None:
+                    self.pattern_cache.put(q.fingerprint,
+                                           store_to_entries(*prev))
+                self._pending_snaps[q.fingerprint] = (snap, hits)
+                while len(self._pending_snaps) > max(8, 2 * self.n_slots):
+                    old_fp, (old_snap, old_hits) = \
+                        self._pending_snaps.popitem(last=False)
+                    self.pattern_cache.put(
+                        old_fp, store_to_entries(old_snap, old_hits))
+            self.finished[q.query_id] = MatchResult(q.embeddings, q.stats)
+            self._fresh_done.append(q.query_id)
+            if q.device and self.sb is not None:
+                clear_slot_stack(self.sb, q.slot)
+            self.pool.release(q.slot)
 
     def _abort(self, q: QueryState, reason: str) -> None:
         """Abort a query (budget, limit, cancel); partial embeddings are
@@ -1120,32 +1130,29 @@ class WaveScheduler:
         bufs = self._pending_stores()
         if not bufs:
             return
-        t0 = time.perf_counter()
-        if not self.pool.learning_enabled:
-            for q, buf in bufs:
-                buf.clear()
-            self.t_flush_s += time.perf_counter() - t0
-            return
-        total = sum(len(buf) for _, buf in bufs)
-        if not force and total < self.store_flush_min:
-            self.t_flush_s += time.perf_counter() - t0
-            return
-        dedup = self._drain_dedup(bufs, None)
-        if self._faults is not None and dedup and self._faults.poke(
-                "flush", n=len(dedup)) is not None:
-            # injected flush failure: drop the batch — sound, patterns
-            # only ever prune
-            self.fault_counters["flush_drops"] += 1
-            self.t_flush_s += time.perf_counter() - t0
-            return
-        n_pad = 16
-        while n_pad < len(dedup):
-            n_pad *= 2
-        self.tb, counters = store_patterns_mq(
-            self.tb, *self._store_args(self._pack_store_batch(dedup, n_pad)))
-        self._flush_ctr_dev = (counters if self._flush_ctr_dev is None
-                               else self._flush_ctr_dev.add(counters))
-        self.t_flush_s += time.perf_counter() - t0
+        with self.spans.span("flush"):
+            if not self.pool.learning_enabled:
+                for q, buf in bufs:
+                    buf.clear()
+                return
+            total = sum(len(buf) for _, buf in bufs)
+            if not force and total < self.store_flush_min:
+                return
+            dedup = self._drain_dedup(bufs, None)
+            if self._faults is not None and dedup and self._faults.poke(
+                    "flush", n=len(dedup)) is not None:
+                # injected flush failure: drop the batch — sound, patterns
+                # only ever prune
+                self.fault_counters["flush_drops"] += 1
+                return
+            n_pad = 16
+            while n_pad < len(dedup):
+                n_pad *= 2
+            self.tb, counters = store_patterns_mq(
+                self.tb,
+                *self._store_args(self._pack_store_batch(dedup, n_pad)))
+            self._flush_ctr_dev = (counters if self._flush_ctr_dev is None
+                                   else self._flush_ctr_dev.add(counters))
 
     def _materialize_flush_counters(self) -> None:
         """Fold the accumulated flush counters into stats (runs at every
@@ -1158,21 +1165,19 @@ class WaveScheduler:
     def _drain_store_batch(self):
         """Drain up to ``store_pad`` host-queued pattern stores into the
         fixed-length arrays that ride the next megastep dispatch."""
-        t0 = time.perf_counter()
-        bufs = self._pending_stores()
-        if not self.pool.learning_enabled:
-            for q, buf in bufs:
-                buf.clear()
-            bufs = []
-        dedup = self._drain_dedup(bufs, self.store_pad)
-        if self._faults is not None and dedup and self._faults.poke(
-                "flush", n=len(dedup)) is not None:
-            # injected flush failure: drop the pattern batch (sound)
-            self.fault_counters["flush_drops"] += 1
-            dedup = {}
-        out = self._pack_store_batch(dedup, self.store_pad)
-        self.t_flush_s += time.perf_counter() - t0
-        return out
+        with self.spans.span("flush"):
+            bufs = self._pending_stores()
+            if not self.pool.learning_enabled:
+                for q, buf in bufs:
+                    buf.clear()
+                bufs = []
+            dedup = self._drain_dedup(bufs, self.store_pad)
+            if self._faults is not None and dedup and self._faults.poke(
+                    "flush", n=len(dedup)) is not None:
+                # injected flush failure: drop the pattern batch (sound)
+                self.fault_counters["flush_drops"] += 1
+                dedup = {}
+            return self._pack_store_batch(dedup, self.store_pad)
 
     # ------------------------------------------------------------------
     # one scheduling step (double-buffered pipeline)
@@ -1181,11 +1186,16 @@ class WaveScheduler:
         """Admit, dispatch and fold one round of work; returns False
         when idle. The device-stack dispatch goes out before the host
         waves; each in-flight dispatch is folded after the next one was
-        issued (double buffering), as in the reference."""
+        issued (double buffering), as in the reference. Each call is a
+        ``step`` span with its phases (``admit``, ``dispatch``,
+        ``retire``) inside."""
+        with self.spans.span("step"):
+            return self._step()
+
+    def _step(self) -> bool:
         self._check_budgets()
-        t_a = time.perf_counter()
-        self._admit()
-        self.t_admit_s += time.perf_counter() - t_a
+        with self.spans.span("admit"):
+            self._admit()
         if self.waves - self._last_aged_wave >= self.hit_decay_every:
             age_hits(self.tb)
             self._last_aged_wave = self.waves
@@ -1200,12 +1210,12 @@ class WaveScheduler:
             # tail regime: retire before dispatching, so a pool that just
             # completed skips the speculative trailing dispatch
             sync_dev, self._inflight_dev = self._inflight_dev, None
-            self._retire_device(sync_dev)
+            with self.spans.span("retire"):
+                self._retire_device(sync_dev)
             retired_dev = True
-        t0 = time.perf_counter()
-        rec_dev = self._dispatch_device(
-            1 if ema_high else self.megastep_depth)
-        self.t_dispatch_s += time.perf_counter() - t0
+        with self.spans.span("dispatch"):
+            rec_dev = self._dispatch_device(
+                1 if ema_high else self.megastep_depth)
         prev_dev, self._inflight_dev = self._inflight_dev, rec_dev
         if ema_high:
             prev, self._inflight = self._inflight, None
@@ -1213,31 +1223,32 @@ class WaveScheduler:
                 self._retire_host(prev)
             progressed = self._step_single() or prev is not None
         else:
-            t0 = time.perf_counter()
-            picks = self._pack_wave()
-            rec: _Inflight | None = None
-            if picks is not None:
-                if self._wave_kind == "fresh":
-                    rec = self._dispatch_mega(picks)
-                else:
-                    rec = self._dispatch_leftover(picks)
-            self.t_dispatch_s += time.perf_counter() - t0
+            with self.spans.span("dispatch"):
+                picks = self._pack_wave()
+                rec: _Inflight | None = None
+                if picks is not None:
+                    if self._wave_kind == "fresh":
+                        rec = self._dispatch_mega(picks)
+                    else:
+                        rec = self._dispatch_leftover(picks)
             prev, self._inflight = self._inflight, rec
             if prev is not None:
                 self._retire_host(prev)
             progressed = prev is not None or rec is not None
         if prev_dev is not None:
-            self._retire_device(prev_dev)
+            with self.spans.span("retire"):
+                self._retire_device(prev_dev)
         # a dispatch that failed for good leaves its queries' replays
         # queued: that is progress too
         return (progressed or retired_dev or prev_dev is not None
                 or rec_dev is not None or bool(self.queue))
 
     def _retire_host(self, rec: _Inflight) -> None:
-        if rec.kind == "mega":
-            self._retire_mega(rec)
-        else:
-            self._retire_leftover(rec)
+        with self.spans.span("retire"):
+            if rec.kind == "mega":
+                self._retire_mega(rec)
+            else:
+                self._retire_leftover(rec)
 
     # ------------------------------------------------------------------
     # device-resident stack dispatch / retire
@@ -1298,7 +1309,7 @@ class WaveScheduler:
                 self.g, self.qb, self.tb, self.sb, *args, id_base,
                 bool(self.pool.learning_enabled), t_max,
                 kpr=self._mega_kpr, emb_cap=self._emb_cap,
-                wave=self.wave_size, timing=self.timing),
+                wave=self.wave_size, spans=self.spans),
             devq, stacks=True)
         if res is None:
             return None             # failed for good: queries quarantined
@@ -1328,19 +1339,19 @@ class WaveScheduler:
             return
         res = rec.res
         t0 = time.perf_counter()
-        # one device->host copy for every per-slot lane and the count
-        lanes = _DEV_LANES + _PAT_LANES
-        flat = _np(torch.cat([torch.stack([getattr(res, k) for k in lanes])
-                              .reshape(-1), res.n_emb.reshape(1)]))
-        s = self.n_slots
-        dig = {k: flat[i * s:(i + 1) * s] for i, k in enumerate(lanes)}
-        n_emb_raw = int(flat[-1])
-        n_emb = max(0, min(n_emb_raw, self._emb_cap))
-        embF = _np(res.emb_frontier[:n_emb])
-        embS = _np(res.emb_slot[:n_emb])
-        t1 = time.perf_counter()
-        self.t_sync_s += t1 - t0
-        late = self._late(rec, t1 - t0)
+        with self.spans.span("readback"):
+            # one device->host copy for every per-slot lane and the count
+            lanes = _DEV_LANES + _PAT_LANES
+            flat = _np(torch.cat([torch.stack([getattr(res, k)
+                                               for k in lanes]).reshape(-1),
+                                  res.n_emb.reshape(1)]))
+            s = self.n_slots
+            dig = {k: flat[i * s:(i + 1) * s] for i, k in enumerate(lanes)}
+            n_emb_raw = int(flat[-1])
+            n_emb = max(0, min(n_emb_raw, self._emb_cap))
+            embF = _np(res.emb_frontier[:n_emb])
+            embS = _np(res.emb_slot[:n_emb])
+        late = self._late(rec, time.perf_counter() - t0)
         if late is not None:
             self.fault_counters["hangs"] += 1
             self._watchdog_fire(rec.slot_map, late, stacks=True)
@@ -1386,7 +1397,6 @@ class WaveScheduler:
         d_stored = dig["d_stored"]
         d_pending = dig["d_pending"]
         d_live = dig["d_live"]
-        r0, f0 = self.t_retire_s, self.t_flush_s
 
         self._fold_store_counters([dig[k] for k in _PAT_LANES],
                                   rec.slot_map)
@@ -1458,10 +1468,6 @@ class WaveScheduler:
                 self._export_device_query(q)
         if worked:
             self._note_prunes(int(d_prunes.sum()), int(d_rows.sum()))
-        dt = time.perf_counter() - t1
-        self.t_host_s += dt
-        self.t_digest_s += max(0.0, dt - (self.t_retire_s - r0)
-                               - (self.t_flush_s - f0))
 
     def _export_device_query(self, q: QueryState) -> None:
         """Wedge fallback: materialize one slot's device stack back into
@@ -1554,7 +1560,7 @@ class WaveScheduler:
                 self.g, self.qb, self.tb, *args, *st, id_base,
                 bool(self.pool.learning_enabled), kpr=self._mega_kpr,
                 k_depth=self.megastep_depth, capacity=self._ring_capacity,
-                emb_cap=self._emb_cap, timing=self.timing),
+                emb_cap=self._emb_cap, spans=self.spans),
             picked, stacks=False)
         if res is None:
             return None             # failed for good: queries demoted
@@ -1575,32 +1581,31 @@ class WaveScheduler:
             return
         res: MegaResult = rec.res
         t0 = time.perf_counter()
-        head = int(res.head)
-        tail = int(res.tail)
-        # only ring rows [0, tail) carry anything: copy just those
-        bufF = _np(res.buf_frontier[:tail])
-        bufU = _words(res.buf_used[:tail])
-        bufP = _np(res.buf_phi[:tail])
-        slot_a = _np(res.buf_slot[:tail])
-        depth_a = _np(res.buf_depth[:tail])
-        parent_a = _np(res.buf_parent[:tail])
-        valid_a = _np(res.buf_valid[:tail])
-        rempty = _np(res.refined_empty[:tail])
-        nchild = _np(res.n_children[:tail])
-        nleft = _np(res.n_leftover[:tail])
-        leftover = _words(res.leftover[:tail])
-        pmask = mask64(_np(res.partial_mask[:tail]))
-        nprun = _np(res.n_pruned[:tail])
-        ninj = _np(res.n_inj[:tail])
-        nembr = _np(res.n_emb_row[:tail])
-        dstored = _np(res.dev_stored[:tail])
-        pruned_v = _np(res.pruned_v[:tail])
-        n_emb = int(res.n_emb)
-        embF = _np(res.emb_frontier[:max(0, n_emb)])
-        embS = _np(res.emb_slot[:max(0, n_emb)])
-        t1 = time.perf_counter()
-        self.t_sync_s += t1 - t0
-        late = self._late(rec, t1 - t0)
+        with self.spans.span("readback"):
+            head = int(res.head)
+            tail = int(res.tail)
+            # only ring rows [0, tail) carry anything: copy just those
+            bufF = _np(res.buf_frontier[:tail])
+            bufU = _words(res.buf_used[:tail])
+            bufP = _np(res.buf_phi[:tail])
+            slot_a = _np(res.buf_slot[:tail])
+            depth_a = _np(res.buf_depth[:tail])
+            parent_a = _np(res.buf_parent[:tail])
+            valid_a = _np(res.buf_valid[:tail])
+            rempty = _np(res.refined_empty[:tail])
+            nchild = _np(res.n_children[:tail])
+            nleft = _np(res.n_leftover[:tail])
+            leftover = _words(res.leftover[:tail])
+            pmask = mask64(_np(res.partial_mask[:tail]))
+            nprun = _np(res.n_pruned[:tail])
+            ninj = _np(res.n_inj[:tail])
+            nembr = _np(res.n_emb_row[:tail])
+            dstored = _np(res.dev_stored[:tail])
+            pruned_v = _np(res.pruned_v[:tail])
+            n_emb = int(res.n_emb)
+            embF = _np(res.emb_frontier[:max(0, n_emb)])
+            embS = _np(res.emb_slot[:max(0, n_emb)])
+        late = self._late(rec, time.perf_counter() - t0)
         if late is not None:
             self.fault_counters["hangs"] += 1
             self._watchdog_fire(picked, late, stacks=False)
@@ -1615,7 +1620,6 @@ class WaveScheduler:
                 picked, f"megastep digest globally invalid (head={head} "
                 f"tail={tail} n_emb={n_emb})", stacks=False)
             return
-        r0, f0 = self.t_retire_s, self.t_flush_s
 
         self._fold_store_counters(
             (res.pat_stored, res.pat_overwrites, res.pat_evictions,
@@ -1761,10 +1765,6 @@ class WaveScheduler:
             elif not q.segments:
                 self._finish(q)
         self._note_prunes(int(nprun[:tail].sum()), max(0, tail - f_in))
-        dt = time.perf_counter() - t1
-        self.t_host_s += dt
-        self.t_digest_s += max(0.0, dt - (self.t_retire_s - r0)
-                               - (self.t_flush_s - f0))
 
     # ------------------------------------------------------------------
     # leftover extraction and single-step waves
@@ -1774,6 +1774,15 @@ class WaveScheduler:
         return extract_more_mq(self.tb, _i32(ph, dev), _i32(slot_v, dev),
                                _i32(depth_v, dev), _i32(lo, dev),
                                kpr=4 * self.kpr)
+
+    def _expand_digest(self, res) -> dict:
+        return dict(
+            refined_empty=_np(res.refined_empty),
+            n_children=_np(res.n_children), n_leftover=_np(res.n_leftover),
+            partial=mask64(_np(res.partial_mask)), child_v=_np(res.child_v),
+            child_valid=_np(res.child_valid), leftover=_words(res.leftover),
+            n_pruned=_np(res.n_pruned), n_inj=_np(res.n_inj),
+            pruned_v=_np(res.pruned_v))
 
     def _leftover_digest(self, res: tuple) -> dict:
         child_valid = _np(res[1])
@@ -1798,62 +1807,39 @@ class WaveScheduler:
                          fr=fr, us=us, ph=ph, depth_v=depth_v)
 
     def _retire_leftover(self, rec: _Inflight) -> None:
-        t0 = time.perf_counter()
-        digest = self._leftover_digest(rec.res)
-        t1 = time.perf_counter()
-        self.t_sync_s += t1 - t0
-        r0, f0 = self.t_retire_s, self.t_flush_s
+        with self.spans.span("readback"):
+            digest = self._leftover_digest(rec.res)
         self._process_wave("leftover", rec.metas, rec.fr, rec.us, rec.ph,
                            rec.depth_v, digest)
-        dt = time.perf_counter() - t1
-        self.t_host_s += dt
-        self.t_digest_s += max(0.0, dt - (self.t_retire_s - r0)
-                               - (self.t_flush_s - f0))
 
     def _step_single(self) -> bool:
         picks = self._pack_wave()
         if picks is None:
             return False
         kind = self._wave_kind
-        t0 = time.perf_counter()
-        fr, us, ph, lo, valid, slot_v, depth_v, metas = \
-            self._build_wave(picks, kind)
-        self._flush_stores()
-        for q in {q.slot: q for q, *_ in metas}.values():
-            q.stats.waves += 1
-        dev = self.device
-        if kind == "fresh":
-            self.slot_rows_expanded += np.bincount(
-                slot_v[valid], minlength=self.n_slots).astype(np.int64)
-            res = expand_wave_mq(
-                self.g, self.qb, self.tb, _i32(fr, dev), _i32(us, dev),
-                _i32(ph, dev), _i32(valid, dev), _i32(slot_v, dev),
-                _i32(depth_v, dev), kpr=self.kpr)
-            self.timing["iterations"] += 1     # one Eq. 2 refine pass
-            self.t_dispatch_s += time.perf_counter() - t0
-            t1 = time.perf_counter()
-            digest = dict(
-                refined_empty=_np(res.refined_empty),
-                n_children=_np(res.n_children),
-                n_leftover=_np(res.n_leftover),
-                partial=mask64(_np(res.partial_mask)),
-                child_v=_np(res.child_v), child_valid=_np(res.child_valid),
-                leftover=_words(res.leftover), n_pruned=_np(res.n_pruned),
-                n_inj=_np(res.n_inj), pruned_v=_np(res.pruned_v))
-        else:
-            res = self._extract_more(ph, slot_v, depth_v, lo)
-            self.t_dispatch_s += time.perf_counter() - t0
-            t1 = time.perf_counter()
-            digest = self._leftover_digest(res)
-        self.n_dispatches += 1
-        t2 = time.perf_counter()
-        self.t_sync_s += t2 - t1
-        r0, f0 = self.t_retire_s, self.t_flush_s
-        self._process_wave(kind, metas, fr, us, ph, depth_v, digest)
-        dt = time.perf_counter() - t2
-        self.t_host_s += dt
-        self.t_digest_s += max(0.0, dt - (self.t_retire_s - r0)
-                               - (self.t_flush_s - f0))
+        with self.spans.span("dispatch"):
+            fr, us, ph, lo, valid, slot_v, depth_v, metas = \
+                self._build_wave(picks, kind)
+            self._flush_stores()
+            for q in {q.slot: q for q, *_ in metas}.values():
+                q.stats.waves += 1
+            dev = self.device
+            if kind == "fresh":
+                self.slot_rows_expanded += np.bincount(
+                    slot_v[valid], minlength=self.n_slots).astype(np.int64)
+                res = expand_wave_mq(
+                    self.g, self.qb, self.tb, _i32(fr, dev), _i32(us, dev),
+                    _i32(ph, dev), _i32(valid, dev), _i32(slot_v, dev),
+                    _i32(depth_v, dev), kpr=self.kpr)
+                self.spans.count("iterations")     # one Eq. 2 refine pass
+            else:
+                res = self._extract_more(ph, slot_v, depth_v, lo)
+            self.n_dispatches += 1
+        with self.spans.span("retire"):
+            with self.spans.span("readback"):
+                digest = (self._expand_digest(res) if kind == "fresh"
+                          else self._leftover_digest(res))
+            self._process_wave(kind, metas, fr, us, ph, depth_v, digest)
         return True
 
     def _process_wave(self, kind: str, metas: list, fr, us, ph, depth_v,
@@ -2023,16 +2009,9 @@ class WaveScheduler:
             "deadend_prunes": prunes,
             "rows_created": rows,
             "prune_rate": prunes / max(1, prunes + rows),
-            "dispatch_time_s": self.t_dispatch_s,
-            "device_sync_time_s": self.t_sync_s,
-            "host_time_s": self.t_host_s,
-            "host_admission_time_s": self.t_admit_s,
-            "host_digest_time_s": self.t_digest_s,
-            "host_retirement_time_s": self.t_retire_s,
-            "host_flush_time_s": self.t_flush_s,
             "loop_iterations": self.timing["iterations"],
-            "loop_readbacks": self.timing["readbacks"],
-            "loop_readback_time_s": self.timing["readback_s"],
+            # {path: {"n", "s", "self_s"}} of every span run so far
+            "spans": self.spans.snapshot(),
             "wedge_exports": self.n_exported,
             "device_stacks": self._use_device,
             "adjacency_variant": self.adjacency_variant,
