@@ -202,6 +202,7 @@ class Graph:
         object.__setattr__(self, "_bitmap", None)
         object.__setattr__(self, "_hier", {})
         object.__setattr__(self, "_label_index", None)
+        object.__setattr__(self, "_nlf_counts", None)
 
     @property
     def degrees(self) -> np.ndarray:
@@ -272,11 +273,15 @@ class Graph:
     # ---- neighbor label multiset signature (GraphQL-style filter) ------
     @property
     def neighbor_label_counts(self) -> np.ndarray:
-        """[n, n_labels] int32 — count of each label among neighbors."""
-        counts = np.zeros((self.n, self.n_labels), dtype=np.int32)
-        src = np.repeat(np.arange(self.n, dtype=np.int32), self.degrees)
-        np.add.at(counts, (src, self.labels[self.indices]), 1)
-        return counts
+        """[n, n_labels] int32 — count of each label among neighbors.
+        Built on first use and kept (read-only)."""
+        if self._nlf_counts is None:
+            counts = np.zeros((self.n, self.n_labels), dtype=np.int32)
+            src = np.repeat(np.arange(self.n, dtype=np.int32), self.degrees)
+            np.add.at(counts, (src, self.labels[self.indices]), 1)
+            counts.flags.writeable = False
+            object.__setattr__(self, "_nlf_counts", counts)
+        return self._nlf_counts
 
     def relabel(self, order: np.ndarray) -> "Graph":
         """A copy with vertex ``order[i]`` renamed to ``i`` (``order``

@@ -55,8 +55,8 @@ class Spans:
     def span(self, name: str, qid: int | None = None) -> "_Span":
         return _Span(self, name, qid)
 
-    def count(self, name: str) -> None:
-        self.counters[name] = self.counters.get(name, 0) + 1
+    def count(self, name: str, k: int = 1) -> None:
+        self.counters[name] = self.counters.get(name, 0) + k
 
     def snapshot(self) -> dict:
         """``{path: {"n", "s", "self_s"}}``, JSON-safe."""

@@ -315,7 +315,8 @@ class WaveScheduler:
         # holds the device time too. ``timing`` is the table's counter
         # dict: "iterations" counts expansion iterations (one Eq. 2
         # refine pass each: megastep loop iterations plus single-step
-        # fresh waves)
+        # fresh waves); the candidate filters add "nlf_table_builds"
+        # and "cfl_rows" (``core/candidates.py``)
         self.spans = Spans()
         self.timing = self.spans.counters
         # fault tolerance (DESIGN.md §8): every hook is gated on its
@@ -2012,6 +2013,7 @@ class WaveScheduler:
             "loop_iterations": self.timing["iterations"],
             # {path: {"n", "s", "self_s"}} of every span run so far
             "spans": self.spans.snapshot(),
+            "counters": dict(self.spans.counters),
             "wedge_exports": self.n_exported,
             "device_stacks": self._use_device,
             "adjacency_variant": self.adjacency_variant,

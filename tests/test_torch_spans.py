@@ -6,9 +6,10 @@ The table's arithmetic runs on a stub clock. A tiny serve through
 scheduler records: no profiler range entered while no profiler runs,
 the ``repro_torch.*`` ranges (op ranges, not user annotations, so the
 profiler copies none onto a device timeline) nested as their names say
-while one does, one ``submit`` span per submit and the ``iterations``
-counter behind both ``scheduler.timing`` and ``loop_iterations``, on
-each of the scheduler's three schedules.
+while one does, one ``submit`` span per submit, the ``iterations``
+counter behind both ``scheduler.timing`` and ``loop_iterations``, and
+the front door's ``nlf_table_builds`` and ``cfl_rows`` counters, on each
+of the scheduler's three schedules.
 """
 import json
 
@@ -148,6 +149,11 @@ def test_the_span_table_behind_scheduler_stats(schedule):
     # stats' loop_iterations
     assert sched.timing is sched.spans.counters
     assert rep["loop_iterations"] == sched.timing["iterations"] > 0
+    # the front door's counters: the data graph's neighbor-label table
+    # built once for all submits, and the rows CFL's sweeps reduced
+    assert sched.timing["nlf_table_builds"] == 1
+    assert sched.timing["cfl_rows"] > 0
+    assert rep["counters"] == sched.timing
     readbacks = {k for k in spans if k.endswith(".readback")}
     if schedule == "single-step":
         assert readbacks == {"step.retire.readback"}
